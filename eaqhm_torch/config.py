@@ -50,9 +50,11 @@ class EaqhmConfig:
     # "auto": float32 on CUDA, float64 on the CPU (parity tests)
     dtype: str = "auto"             # "auto" | "float32" | "float64"
     # LS solve: "auto" -> "cholesky" for float64, "pallas" for float32.
-    # "cholesky" is one hand-kernel solve (float32: ridged rerun on a
-    # non-finite batch); "pallas" is a solve plus one refinement step.
-    # Both run the CUDA Cholesky kernel on the card (ops.chol).
+    # "cholesky" is one hand-kernel solve, NaN on a failed pivot (float32:
+    # ridged rerun on a non-finite batch); "pallas" is a complex64 solve
+    # with the Pallas pivot guard plus one refinement step (one
+    # factorization, two substitutions).  Both run the CUDA Cholesky kernel
+    # on the card (ops.chol).
     solve_method: str = "auto"      # "auto"|"block_inverse"|"cholesky"|"pallas"
     # replicate reference quirks needed for bit-comparable SRER
     replicate_quirks: bool = True

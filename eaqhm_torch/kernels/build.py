@@ -24,8 +24,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "chol_solve": ("chol_solve.cu", {
-        "chol_solve_c64": [_P, _P, _P, _P, _I, _I, _P],
-        "chol_solve_c128": [_P, _P, _P, _P, _I, _I, _P],
+        "chol_path": [_I, _I],
+        "chol_phase_clocks": [_P],
+        "chol_factor_solve_c64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "chol_factor_solve_c128": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
+        "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
     }),
 }
 
@@ -42,20 +46,20 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, flags: tuple) -> str:
     src, _ = KERNELS[name]
     with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def _compile(name: str) -> str:
-    out = _lib_path(name)
+def _compile(name: str, flags: tuple) -> str:
+    out = _lib_path(name, flags)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp,
            os.path.join(CSRC, KERNELS[name][0])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -66,13 +70,17 @@ def _compile(name: str) -> str:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for one kernel, built first if needed."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(_compile(name))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for one kernel, built first if needed.  defines
+    (e.g. ("CHOL_PHASE_CLOCKS",)) build a separate variant for a tool; the
+    port itself loads the plain build."""
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        flags = tuple(NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
+        lib = ctypes.CDLL(_compile(name, flags))
         for sym, argtypes in KERNELS[name][1].items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded[name] = lib
-    return _loaded[name]
+        _loaded[key] = lib
+    return _loaded[key]

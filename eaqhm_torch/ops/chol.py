@@ -1,32 +1,58 @@
 """Batched HPD Cholesky solve: the hand-written CUDA kernel and its plain
-PyTorch version.
+PyTorch versions.
 
 The kernel (``kernels/csrc/chol_solve.cu``) replaces the Pallas TPU kernel
 ``eaqhm_tpu/ops/pallas_chol.py:_chol_solve_kernel``: factor R = L L^H for a
 batch of equilibrated complex HPD matrices and solve L L^H x = b for one
-right-hand side each, with the Pallas kernel's diagonal guard
-``rsqrt(max(d, 1e-30))``.
+right-hand side each.  Two entry points: ``chol_solve`` (factor + solve, and
+on request the factor kept for later right-hand sides) and ``chol_subst``
+(both substitutions with a kept factor), so a refined solve factors once.
 
-Bound on an H100: M^3/6 complex multiply-adds per system against
-M(M+1)/2 complex reads (one triangle of R), so at the main path's M
-(130-258) the arithmetic sets the floor in both types.  The first
-kernel is simple: one thread block per system, column-by-column rank-1
-updates in a device-memory workspace, so it runs at cache bandwidth and
-M barriers per system (see the source note).  It takes any M and B as they
-are: no panel or batch padding.
+Two pivot rules (``mode``):
+  "guard"  the Pallas kernel's ``rsqrt(max(d, 1e-30))`` (solve_method
+           "pallas");
+  "nan"    a pivot <= 0 or NaN makes that system's x NaN, as
+           jnp.linalg.cholesky does (solve_method "cholesky").
+
+Bound on an H100: M^3/6 complex multiply-adds per system against M(M+1)/2
+complex reads (one triangle of R), so at the main path's M (130-194) the
+arithmetic sets the floor in both types.  The kernel keeps the triangle in
+shared memory where it fits (the "resident" path: complex64 M <= 238,
+complex128 M <= 167) and otherwise in a device-memory workspace with each
+panel staged on chip (the "global" path); blocked right-looking updates in
+register tiles (see the source note).  It takes any M and B as they are.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version.  ``chol_solve.launches`` / ``chol_subst.launches``
+count kernel launches and ``.shapes`` record each launch: (B, M, path, mode,
+keep_factor) and (B, M, path); ``.plain_calls`` counts the calls served by
+the plain version.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from eaqhm_torch.kernels import build
 
-_SYMBOL = {torch.complex64: "chol_solve_c64",
-           torch.complex128: "chol_solve_c128"}
+_SYMBOLS = {torch.complex64: ("chol_factor_solve_c64", "chol_subst_c64"),
+            torch.complex128: ("chol_factor_solve_c128", "chol_subst_c128")}
+MODES = ("guard", "nan")
+PATHS = ("resident", "global")
+_GUARD = 1e-30
+
+
+class Factor(NamedTuple):
+    """A kept Cholesky factor.  From the kernel: L row-packed lower triangle
+    [B, M(M+1)/2] (row i at i(i+1)/2) and d its real diagonal [B, M]; from
+    the plain version: L full lower [B, M, M] and d None."""
+    L: torch.Tensor
+    d: Optional[torch.Tensor]
 
 
 def _check(R: torch.Tensor, rhs: torch.Tensor) -> None:
-    if R.dtype not in _SYMBOL:
+    if R.dtype not in _SYMBOLS:
         raise TypeError(f"chol_solve takes complex64/complex128, got {R.dtype}")
     if rhs.dtype != R.dtype:
         raise TypeError(f"rhs dtype {rhs.dtype} != R dtype {R.dtype}")
@@ -41,47 +67,165 @@ def _check(R: torch.Tensor, rhs: torch.Tensor) -> None:
         raise ValueError("chol_solve needs contiguous R and rhs")
 
 
-def chol_solve_reference(R: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Plain version: Cholesky + two triangular solves (the function the
-    JAX float64 branch computes, solver.py:356-362).  A matrix whose
-    factorization fails yields NaN, as jnp.linalg.cholesky does."""
-    L, info = torch.linalg.cholesky_ex(R)
-    L = torch.where((info != 0)[:, None, None],
-                    torch.full_like(L, float("nan")), L)
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chol_solve runs on CUDA or CPU, not {t.device}")
+    return t.device.type
+
+
+def chol_factor_reference(R: torch.Tensor, mode: str = "nan") -> torch.Tensor:
+    """Plain factor: the full lower L [B, M, M] of R = L L^H.
+
+    "nan": torch.linalg.cholesky_ex (cuSOLVER on the card), and a system
+    whose factorization fails gets an all-NaN L, as jnp.linalg.cholesky.
+    "guard": a column loop vectorised over B with the Pallas kernel's pivot
+    rule at every column (L[j, j] = d * rd, L[i, j] = A[i, j] * rd,
+    rd = rsqrt(max(d, 1e-30))); equal to cholesky_ex to rounding on HPD R.
+    """
+    _check_mode(mode)
+    if mode == "nan":
+        L, info = torch.linalg.cholesky_ex(R)
+        return torch.where((info != 0)[:, None, None],
+                           torch.full_like(L, float("nan")), L)
+    A = R.clone()
+    L = torch.zeros_like(R)
+    for j in range(R.shape[-1]):
+        d = A[:, j, j].real
+        rd = torch.rsqrt(torch.where(d < _GUARD, torch.full_like(d, _GUARD),
+                                     d))
+        col = A[:, j:, j] * rd[:, None]
+        col[:, 0] = (d * rd).to(R.dtype)
+        L[:, j:, j] = col
+        c = col[:, 1:]
+        A[:, j + 1:, j + 1:] -= c[:, :, None] * c.conj()[:, None, :]
+    return L
+
+
+def chol_subst_reference(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Plain substitution: x = (L L^H)^-1 rhs, two triangular solves."""
     y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
-    x = torch.linalg.solve_triangular(L.mH, y, upper=True)
-    return x[..., 0]
+    return torch.linalg.solve_triangular(L.mH, y, upper=True)[..., 0]
 
 
-def chol_solve(R: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def chol_solve_reference(R: torch.Tensor, rhs: torch.Tensor,
+                         mode: str = "nan") -> torch.Tensor:
+    """Plain factor + solve.  In "nan" mode this is cuSOLVER's Cholesky and
+    two triangular solves, the function the JAX float64 branch computes
+    (solver.py:356-362)."""
+    return chol_subst_reference(chol_factor_reference(R, mode), rhs)
+
+
+def unpack_factor(f: Factor) -> torch.Tensor:
+    """The full lower L [B, M, M] of a kept factor (either form)."""
+    if f.d is None:
+        return f.L
+    B, M = f.d.shape
+    rows, cols = torch.tril_indices(M, M, device=f.L.device)
+    L = torch.zeros((B, M, M), dtype=f.L.dtype, device=f.L.device)
+    L[:, rows, cols] = f.L        # tril_indices run row by row: packed order
+    idx = torch.arange(M, device=f.L.device)
+    L[:, idx, idx] = f.d.to(f.L.dtype)
+    return L
+
+
+def path_for(dtype: torch.dtype, M: int) -> str:
+    """The kernel path a system of order M takes: "resident" or "global"
+    (needs the built library: call only with CUDA tensors at hand)."""
+    p = build.load("chol_solve").chol_path(M, int(dtype == torch.complex128))
+    if p < 0:
+        raise ValueError(f"chol_solve: M={M} too large for the kernel "
+                         f"({dtype})")
+    return PATHS[p]
+
+
+def _stream(dev):
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
+               keep_factor: bool = False):
     """Solve R x = rhs for a batch of HPD R: [B, M, M], rhs: [B, M].
 
-    On a CUDA tensor this launches the hand kernel, counts the launch in
-    ``chol_solve.launches`` and records its (B, M) in ``chol_solve.shapes``;
-    on a CPU tensor it runs the plain version.
+    Returns x, or (x, Factor) with keep_factor (for ``chol_subst``).  On a
+    CUDA tensor this launches the hand kernel once, counts it in
+    ``chol_solve.launches`` and records (B, M, path, mode, keep_factor) in
+    ``chol_solve.shapes``; on a CPU tensor it runs the plain version.
     """
     _check(R, rhs)
-    if R.device.type == "cpu":
-        return chol_solve_reference(R, rhs)
-    if R.device.type != "cuda":
-        raise ValueError(f"chol_solve runs on CUDA or CPU, not {R.device}")
+    _check_mode(mode)
+    if _device_of(R) == "cpu":
+        chol_solve.plain_calls += 1
+        L = chol_factor_reference(R, mode)
+        x = chol_subst_reference(L, rhs)
+        return (x, Factor(L, None)) if keep_factor else x
     B, M = rhs.shape
     x = torch.empty_like(rhs)
-    if B == 0:
-        return x
-    work = torch.empty_like(R)
-    lib = build.load("chol_solve")
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _SYMBOL[R.dtype])(
-            R.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(),
-            B, M, stream)
-    if err != 0:
-        raise RuntimeError(f"chol_solve kernel launch failed: cudaError {err}")
-    chol_solve.launches += 1
-    chol_solve.shapes.append((B, M))
+    path = path_for(R.dtype, M)
+    L = d = None
+    if keep_factor or path == "global":
+        L = torch.empty((B, M * (M + 1) // 2), dtype=R.dtype, device=R.device)
+    if keep_factor:
+        d = torch.empty((B, M), dtype=R.real.dtype, device=R.device)
+    if B:
+        lib = build.load("chol_solve")
+        err = getattr(lib, _SYMBOLS[R.dtype][0])(
+            R.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+            None if L is None else L.data_ptr(),
+            None if d is None else d.data_ptr(),
+            B, M, int(mode == "nan"), _stream(R.device))
+        if err != 0:
+            raise RuntimeError(f"chol_solve kernel launch failed: "
+                               f"cudaError {err}")
+        chol_solve.launches += 1
+        chol_solve.shapes.append((B, M, path, mode, keep_factor))
+    return (x, Factor(L, d)) if keep_factor else x
+
+
+def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
+    """x = (L L^H)^-1 rhs with a factor kept by ``chol_solve``: one kernel
+    launch on CUDA (counted in ``chol_subst.launches``, (B, M, path) in
+    ``chol_subst.shapes``: "resident" stages the factor in shared memory,
+    "global" reads it from device memory), the plain triangular solves on
+    the CPU."""
+    if rhs.dtype != f.L.dtype or rhs.dim() != 2 or rhs.device != f.L.device:
+        raise ValueError("chol_subst: rhs must be [B, M] of the factor's "
+                         "dtype and device")
+    if _device_of(rhs) == "cpu":
+        chol_subst.plain_calls += 1
+        return chol_subst_reference(unpack_factor(f), rhs)
+    B, M = rhs.shape
+    if (f.d is None or tuple(f.d.shape) != (B, M)
+            or tuple(f.L.shape) != (B, M * (M + 1) // 2)
+            or not (f.L.is_contiguous() and f.d.is_contiguous()
+                    and rhs.is_contiguous())):
+        raise ValueError("chol_subst needs a kernel factor matching rhs "
+                         f"[{B}, {M}] and contiguous tensors")
+    x = torch.empty_like(rhs)
+    if B:
+        lib = build.load("chol_solve")
+        err = getattr(lib, _SYMBOLS[rhs.dtype][1])(
+            f.L.data_ptr(), f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+            B, M, _stream(rhs.device))
+        if err != 0:
+            raise RuntimeError(f"chol_subst kernel launch failed: "
+                               f"cudaError {err}")
+        chol_subst.launches += 1
+        chol_subst.shapes.append((B, M, path_for(rhs.dtype, M)))
     return x
 
 
-chol_solve.launches = 0
-chol_solve.shapes = []
+def reset_counts() -> None:
+    """Set every launch and plain-call count of this module to 0."""
+    for fn in (chol_solve, chol_subst):
+        fn.launches = 0
+        fn.shapes = []
+        fn.plain_calls = 0
+
+
+reset_counts()

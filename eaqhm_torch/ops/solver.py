@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from eaqhm_torch.ops.chol import chol_solve
+from eaqhm_torch.ops.chol import chol_solve, chol_subst
 
 _RIDGE = 1e-5
 
@@ -87,14 +87,23 @@ def build_gram_split(E1, w, o, s_win, colmask1):
     return R.contiguous(), rhs.contiguous(), dinv
 
 
+def _refined_solve(R, Rf, rhs, mode):
+    """Solve Rf x = rhs, then one refinement against R: one factorization
+    of Rf (kept), the residual rhs - R x in R's type, and one substitution
+    with the kept factor.  Rf may be a complex64 copy of R (float64
+    "pallas"): the correction is cast back and added in R's type."""
+    x, f = chol_solve(Rf, rhs.to(Rf.dtype), mode=mode, keep_factor=True)
+    x = x.to(R.dtype)
+    r = (rhs - _mv(R, x)).to(Rf.dtype).contiguous()
+    return x + chol_subst(f, r).to(R.dtype)
+
+
 def _ridge_rerun(R, rhs):
     """Cholesky of R + 1e-5 I plus one refinement against R (the float32
-    fallback of solver.py:379-387)."""
+    fallback of solver.py:379-387, jnp.linalg.cholesky there: the "nan"
+    pivot rule)."""
     eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
-    Rj = (R + _RIDGE * eye).contiguous()
-    x = chol_solve(Rj, rhs)
-    r = (rhs - _mv(R, x)).contiguous()
-    return x + chol_solve(Rj, r)
+    return _refined_solve(R, (R + _RIDGE * eye).contiguous(), rhs, "nan")
 
 
 def solve_gram(R, rhs, rdtype, method=None):
@@ -102,12 +111,15 @@ def solve_gram(R, rhs, rdtype, method=None):
 
     R: [B, M, M]; rhs: [B, M]; the caller de-equilibrates (x = x' * dinv).
     method: None/"auto" (dtype default) | "cholesky" | "pallas".  Both
-    names launch the CUDA kernel on the card (ops.chol).
-      "cholesky", float64: one solve (solver.py:356-362);
-      "cholesky", float32: one solve, and when any entry is non-finite a
+    names launch the CUDA kernel on the card (ops.chol), with the pivot
+    rule of the JAX branch they stand for.
+      "cholesky", float64: one solve, NaN on a failed pivot
+        (solver.py:356-362);
+      "cholesky", float32: the same, and when any entry is non-finite a
         ridged rerun plus one refinement (solver.py:363-390);
-      "pallas": a solve plus one refinement step with the residual as a
-        plain batched product (solver.py:302-315).
+      "pallas": a complex64 solve with the Pallas kernel's pivot guard plus
+        one refinement step, the residual taken in the caller's type
+        (solver.py:302-315); one factorization, two substitutions.
     """
     if method in (None, "auto"):
         method = default_solve_method(rdtype)
@@ -118,12 +130,11 @@ def solve_gram(R, rhs, rdtype, method=None):
     R = R.contiguous()
     rhs = rhs.contiguous()
     if method == "pallas":
-        x = chol_solve(R, rhs)
-        r = (rhs - _mv(R, x)).contiguous()
-        return x + chol_solve(R, r)
+        return _refined_solve(R, R.to(torch.complex64).contiguous(), rhs,
+                              "guard")
     if method != "cholesky":
         raise ValueError(f"unknown solve_method {method!r}")
-    x = chol_solve(R, rhs)
+    x = chol_solve(R, rhs, mode="nan")
     if rdtype != torch.float64 and not bool(torch.isfinite(
             torch.view_as_real(x)).all()):
         x = _ridge_rerun(R, rhs)

@@ -1,15 +1,20 @@
 """Batched LS fits (eaqhm_torch.ops.solver) against the JAX package, float64
 on the CPU, inputs from a numpy seed.  Tolerance 1e-10 relative: the same
 arithmetic, summed in another order."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from eaqhm_torch.ops import chol
 from eaqhm_torch.ops import solver as ts
 from eaqhm_tpu.ops import solver as js
 
 torch.set_num_threads(1)
+REF = os.path.join(os.path.dirname(__file__), "golden",
+                   "torch_parity_ref.npz")
 B, KC, W, FS = 8, 12, 60, 16000.0
 RTOL = 1e-10
 
@@ -125,9 +130,55 @@ def test_solve_gram_cholesky_f64_matches_jax():
 
 
 def test_solve_gram_pallas_refines_in_float64():
-    R, b = _hpd(5)
+    """JAX's float64 "pallas" (solver.py:302-315): complex64 Pallas solves
+    (interpret mode, recorded in tests/golden/torch_parity_ref.npz by
+    tools/make_torch_parity_ref.py) with the refinement residual in
+    complex128.  Both sides are a complex64 factor plus one complex128
+    refinement, each within ~(cond(R) * eps32)^2 ~ 3e-13 of the exact
+    solution here (cond 9.4); measured apart by 9.8e-14 relative, held to
+    1e-12."""
+    ref = np.load(REF)
+    R, b = ref["pallas_f64/4x37/R"], ref["pallas_f64/4x37/b"]
+    rng = np.random.default_rng(37)              # the recorded inputs
+    A = rng.normal(size=(4, 37, 37)) + 1j * rng.normal(size=(4, 37, 37))
+    R_in = A @ np.conj(np.swapaxes(A, -1, -2)) / 37 + np.eye(37)
+    d = np.sqrt(np.real(np.einsum("bii->bi", R_in)))
+    np.testing.assert_array_equal(R, R_in / (d[:, :, None] * d[:, None, :]))
+    np.testing.assert_array_equal(
+        b, rng.normal(size=(4, 37)) + 1j * rng.normal(size=(4, 37)))
     x = ts.solve_gram(_t(R), _t(b), torch.float64, method="pallas").numpy()
-    _close(x, np.linalg.solve(R, b[..., None])[..., 0])
+    _close(x, ref["pallas_f64/4x37/x"], rtol=1e-12)
+    # and not a complex128 solve: the complex64 factor leaves a trace far
+    # above float64 rounding
+    assert np.abs(x - np.linalg.solve(R, b[..., None])[..., 0]).max() > 1e-15
+
+
+@pytest.mark.parametrize("non_pd", [False, True])
+def test_solve_gram_float32_cholesky_takes_the_ridged_rerun(non_pd):
+    """Counted on the plain path: a healthy batch is one solve; a batch with
+    a non-PD system is one solve plus the ridged rerun (one more
+    factorization and one substitution with its kept factor)."""
+    R, b = _hpd(6)
+    if non_pd:
+        lam = np.linalg.eigvalsh(R[3]).min()
+        R[3] = R[3] - (lam + 3e-6) * np.eye(R.shape[-1])
+    chol.reset_counts()
+    x = ts.solve_gram(_t(R.astype(np.complex64)), _t(b.astype(np.complex64)),
+                      torch.float32, method="cholesky")
+    assert torch.isfinite(torch.view_as_real(x)).all()
+    assert chol.chol_solve.plain_calls == (2 if non_pd else 1)
+    assert chol.chol_subst.plain_calls == (1 if non_pd else 0)
+    assert chol.chol_solve.launches == chol.chol_subst.launches == 0
+
+
+def test_solve_gram_float32_pallas_factors_once():
+    R, b = _hpd(7)
+    chol.reset_counts()
+    x = ts.solve_gram(_t(R.astype(np.complex64)), _t(b.astype(np.complex64)),
+                      torch.float32, method="pallas").numpy()
+    assert (chol.chol_solve.plain_calls, chol.chol_subst.plain_calls) == (1, 1)
+    xe = np.linalg.solve(R, b[..., None])[..., 0]
+    assert np.abs(x - xe).max() / np.abs(xe).max() < 1e-5
 
 
 def test_solve_gram_float32_cholesky_ridge_matches_jax():

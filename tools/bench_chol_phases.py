@@ -1,0 +1,125 @@
+"""Where the Cholesky kernel's time goes, phase by phase, on one CUDA GPU.
+
+Builds eaqhm_torch/kernels/csrc/chol_solve.cu a second time with
+-DCHOL_PHASE_CLOCKS (a separate library: the port's own build has no
+clocks), runs the fused factor + solve at the main path's shapes (SA19
+female tiers) and at B = 512, M = 258, and prints for each (type, B, M,
+path) the kernel time of the plain build and of the clocked build (CUDA
+events, warm, mean of 5) and the cycles per block of each phase of a
+block's timeline (thread 0's clock64 at each barrier, waits included):
+load, diagonal block, panel rows, trailing update, panel staging (global
+path), backward substitution, output.  The card's name and power limit and
+its SM clock under load go beside them; the JSON goes to --out.
+
+    python3 tools/bench_chol_phases.py [--out chiprun_out/chol_phases.json]
+"""
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from eaqhm_torch.kernels import build  # noqa: E402
+from eaqhm_torch.ops import chol  # noqa: E402
+
+PHASES = ("load", "diagonal_block", "panel_rows", "trailing_update",
+          "panel_staging", "backward_subst", "output")
+SHAPES = {torch.complex64: ((2405, 130), (1610, 162), (154, 194), (512, 258)),
+          torch.complex128: ((2304, 130), (1536, 162), (154, 194),
+                             (512, 258))}
+
+
+def hpd(B, M, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
+    R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
+    d = np.sqrt(np.real(np.einsum("bii->bi", R)))
+    R = R / (d[:, :, None] * d[:, None, :])
+    b = rng.normal(size=(B, M)) + 1j * rng.normal(size=(B, M))
+    return (torch.as_tensor(R, dtype=dtype, device="cuda"),
+            torch.as_tensor(b, dtype=dtype, device="cuda"))
+
+
+def cuda_ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "chol_phases.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_chol_phases: no CUDA device")
+    lib = build.load("chol_solve", ("CHOL_PHASE_CLOCKS",))
+    clk = (ctypes.c_ulonglong * 8)()
+    rows = []
+    for dt, shapes in SHAPES.items():
+        cname = str(dt).split(".")[-1]
+        sym = getattr(lib, "chol_factor_solve_" + cname.replace(
+            "complex", "c"))
+        for B, M in shapes:
+            R, b = hpd(B, M, dt)
+            path = chol.path_for(dt, M)
+            x = torch.empty_like(b)
+            L = (torch.empty((B, M * (M + 1) // 2), dtype=dt, device="cuda")
+                 if path == "global" else None)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def clocked():
+                err = sym(R.data_ptr(), b.data_ptr(), x.data_ptr(),
+                          None if L is None else L.data_ptr(), None, B, M, 1,
+                          stream)
+                assert err == 0, err
+
+            plain_ms = cuda_ms(lambda: chol.chol_solve(R, b))
+            clocked()
+            torch.cuda.synchronize()
+            assert lib.chol_phase_clocks(clk) == 0       # zero the counters
+            clocked_ms = cuda_ms(clocked)
+            sm_clock = smi("clocks.sm")
+            assert lib.chol_phase_clocks(clk) == 0
+            blocks = clk[7]
+            cyc = {p: clk[i] / blocks for i, p in enumerate(PHASES)}
+            total = sum(cyc.values())
+            xr = chol.chol_solve_reference(R, b)
+            err = ((x - xr).abs().max() / xr.abs().max()).item()
+            row = {"dtype": cname, "B": B, "M": M, "path": path,
+                   "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,
+                   "sm_clock_under_load": sm_clock,
+                   "cycles_per_block": cyc,
+                   "share": {p: v / total for p, v in cyc.items()},
+                   "max_rel_err": err}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    report = {"card": smi("name,power.limit"), "torch": torch.__version__,
+              "rows": rows}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(report["card"])
+
+
+if __name__ == "__main__":
+    main()

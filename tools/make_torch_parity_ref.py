@@ -8,10 +8,17 @@ Cases (inputs made here with numpy from a seed, stored in the file):
   configs, with the tier tensors it builds (captured at its first device
   call) and its result arrays;
 - chol/<B>x<M>: eaqhm_tpu.ops.pallas_chol.chol_solve in interpret mode on
-  equilibrated HPD complex64 systems.
+  equilibrated HPD complex64 systems;
+- pallas_f64/<B>x<M>: eaqhm_tpu.ops.solver.solve_gram(..., jnp.float64,
+  method="pallas") on equilibrated HPD complex128 systems (complex64 Pallas
+  solves in interpret mode, refinement residual in complex128).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py
+    JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py [--cases ...]
+
+With --cases, only those groups are recomputed; the file's other entries
+are kept as they are.
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -28,6 +35,7 @@ import numpy as np  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from eaqhm_tpu.config import EaqhmConfig  # noqa: E402
 from eaqhm_tpu.models import engine  # noqa: E402
+from eaqhm_tpu.ops import solver  # noqa: E402
 from eaqhm_tpu.ops.pallas_chol import chol_solve  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
@@ -58,6 +66,8 @@ ENGINE_CASES = {
         fc=60.0, partials=20)),
 }
 CHOL_SHAPES = ((5, 50), (3, 32), (9, 37))
+PALLAS_F64_SHAPES = ((4, 37),)
+CASES = ("engine", "chol", "pallas_f64")
 RESULT_FIELDS = ("srer", "s_recon", "det_ti", "det_is_speech",
                  "det_is_voiced", "det_a0", "det_ak", "det_frange", "det_pk",
                  "f0_grid")
@@ -92,20 +102,18 @@ def tier_tensors(s, cfg):
     return No, tiers
 
 
-def hpd_systems(B, M, seed=0):
-    """Equilibrated HPD complex64 systems, as tests/test_ops.py builds them."""
+def hpd_systems(B, M, seed=0, dtype=np.complex64):
+    """Equilibrated HPD systems, as tests/test_ops.py builds them."""
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
     R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
     d = np.sqrt(np.real(np.einsum("bii->bi", R)))
-    R = (R / (d[:, :, None] * d[:, None, :])).astype(np.complex64)
-    b = (rng.normal(size=(B, M)) + 1j * rng.normal(size=(B, M))).astype(
-        np.complex64)
+    R = (R / (d[:, :, None] * d[:, None, :])).astype(dtype)
+    b = (rng.normal(size=(B, M)) + 1j * rng.normal(size=(B, M))).astype(dtype)
     return R, b
 
 
-def main():
-    out = {}
+def engine_cases(out):
     for name, (make, kw) in ENGINE_CASES.items():
         s = make()
         cfg = EaqhmConfig(**kw)
@@ -124,6 +132,9 @@ def main():
             out[p + f] = np.asarray(getattr(res, f))
         print(name, "srer", res.srer, "tiers", [(len(t[0]), t[5], t[6])
                                                 for t in tiers])
+
+
+def chol_cases(out):
     for B, M in CHOL_SHAPES:
         R, b = hpd_systems(B, M)
         x = np.asarray(chol_solve(jnp.asarray(R), jnp.asarray(b),
@@ -131,6 +142,30 @@ def main():
         out[f"chol/{B}x{M}/R"] = R
         out[f"chol/{B}x{M}/b"] = b
         out[f"chol/{B}x{M}/x"] = x
+
+
+def pallas_f64_cases(out):
+    for B, M in PALLAS_F64_SHAPES:
+        R, b = hpd_systems(B, M, seed=M, dtype=np.complex128)
+        x = np.asarray(solver.solve_gram(jnp.asarray(R), jnp.asarray(b),
+                                         jnp.float64, method="pallas"))
+        out[f"pallas_f64/{B}x{M}/R"] = R
+        out[f"pallas_f64/{B}x{M}/b"] = b
+        out[f"pallas_f64/{B}x{M}/x"] = x
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
+    args = ap.parse_args()
+    out = {}
+    if set(args.cases) != set(CASES) and os.path.exists(OUT):
+        with np.load(OUT) as old:
+            out = {k: old[k] for k in old.files
+                   if k.split("/")[0] not in args.cases}
+    for case in args.cases:
+        {"engine": engine_cases, "chol": chol_cases,
+         "pallas_f64": pallas_f64_cases}[case](out)
     np.savez_compressed(OUT, **out)
     print("wrote", OUT, os.path.getsize(OUT) // 1024, "KB")
 
