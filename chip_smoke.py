@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Setup: the card's name and power limit, torch/CUDA versions, the build of
-   every CUDA kernel from the sources in this checkout; TF32 must be off.
+   every CUDA kernel from the sources in this checkout (one nvcc per source,
+   started together); TF32 must be off.
 2. Kernel phase: each hand kernel against its plain PyTorch version on the
    card (random equilibrated HPD systems from a numpy seed), in both pivot
    rules ("guard", "nan"), on both paths (resident, global), for the fused
@@ -17,10 +18,25 @@
    (tests/golden/sa19_golden.npz, female preset) held against the JAX
    package's float64 result (tests/golden/torch_smoke_ref.npz): the same
    adaptation count, SRER within 1e-6 dB, s_recon and det_ak within 1e-8.
-4. Main path, float32: finite SRER and final SRER >= reference - 0.1 dB.
-5. One JSON line of the kernels (each kernel at every launch the main path
-   made, launches counted per entry point), the nvidia-smi line, and as the
-   last line {"ok": true, "device": {...}}.
+4. Main path, float32, solve_method="pallas" (the kernel's guard rule and
+   substitution): finite SRER and final SRER >= reference - 0.1 dB; then the
+   float32 default ("block_inverse", its ridged rerun on the kernel) under
+   the same gate.
+5. Fused loop (fused_adapt_loop): float64 held to the fixture as in 3,
+   float32 under the gate; a first call (adaptation 1 eager, then the
+   capture) and a warm call, whose every eaQHM adaptation is one graph
+   replay with the kernel launched inside the graph and nothing launched
+   eagerly after adaptation 0.
+6. Device DSP: float64 filtfilt on the card against scipy, and the device
+   VAD against the host VAD on the SA19 resynthesis (its lfilter launches
+   counted); the lfilter kernel is held bit for bit to its plain version at
+   those launches' shapes in the kernels line.
+7. The CLI as a subprocess on a wav of the resynthesis (--json): its final
+   SRER equals the API's on the same file.
+8. One JSON line of the kernels (each kernel at every launch the paths
+   made, launches counted per entry point and per path, counts set to 0
+   just before each path and read just after), the nvidia-smi line, and as
+   the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without CUDA,
 or outside a checkout of the repository, it fails.
@@ -41,7 +57,9 @@ FS = 16000
 # highest rate at which each type's multiply-adds run (float32 outside the
 # tensor cores, since TF32 stays off; float64 on the tensor cores)
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"complex64": 67e12, "complex128": 67e12}
+PEAK_FLOP_S = {"complex64": 67e12, "complex128": 67e12,
+               # FP64 outside the tensor cores (the IIR recursion)
+               "float64": 34e12}
 KERNEL_TOL = {"complex64": 2e-4, "complex128": 1e-10}
 RIDGED_TOL = 1e-2
 SRER_TOL_DB = 1e-6
@@ -283,39 +301,209 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
             "ms_by_entry": k_ms, "library_ms_by_entry": l_ms}
 
 
-def run_main_path(torch, chol, eaqhm_torch, sig, dtype_name):
-    """Cold run (counted launches and their shapes), then a warm run for
-    throughput."""
-    cfg = eaqhm_torch.EaqhmConfig(gender="female", dtype=dtype_name)
+def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
+    """One path of analyze: counts set to 0, a first call (counted launches
+    and their shapes, read just after), then two warm calls for the time.
+    Returns (first result, warm result, (fused shapes, subst shapes),
+    launch record, first-call seconds)."""
+    cfg = eaqhm_torch.EaqhmConfig(gender="female", **kw)
     chol.reset_counts()
     t0 = time.time()
     res = eaqhm_torch.analyze(sig, FS, cfg, device="cuda")
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    launches = chol.chol_solve.launches
-    fused = list(chol.chol_solve.shapes)
-    subst = list(chol.chol_subst.shapes)
-    assert len(fused) == launches
-    assert len(subst) == chol.chol_subst.launches
+    rec = {"launches": chol.chol_solve.launches,
+           "replayed": chol.chol_solve.replayed,
+           "subst": chol.chol_subst.launches,
+           "subst_replayed": chol.chol_subst.replayed}
+    shapes = (list(chol.chol_solve.shapes), list(chol.chol_subst.shapes))
+    assert len(shapes[0]) == rec["launches"]
+    assert len(shapes[1]) == rec["subst"]
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
-    t0 = time.time()
-    warm = eaqhm_torch.analyze(sig, FS, cfg, device="cuda")
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
-    per_adapt = [round(m["seconds"], 4) for m in warm.metrics]
-    log(f"main path {dtype_name}: srer={res.srer} launches: chol_solve "
-        f"{launches} chol_subst {len(subst)} paths "
-        f"{dict(Counter(x[2] for x in fused))} "
-        f"first_call_s={first_s:.3f} warm_s={warm_s:.3f} "
-        f"audio_s_per_s={len(sig) / FS / warm_s:.3f} "
-        f"per_adaptation_s={per_adapt} "
+    warm_s = []
+    for _ in range(2):
+        chol.reset_counts()
+        t0 = time.time()
+        warm = eaqhm_torch.analyze(sig, FS, cfg, device="cuda")
+        torch.cuda.synchronize()
+        warm_s.append(time.time() - t0)
+    rec["warm"] = {"launches": chol.chol_solve.launches,
+                   "replayed": chol.chol_solve.replayed,
+                   "subst": chol.chol_subst.launches,
+                   "subst_replayed": chol.chol_subst.replayed}
+    log(f"path {name}: srer={res.srer} launches (first call): chol_solve "
+        f"{rec['launches']} ({rec['replayed']} in graph replays) chol_subst "
+        f"{rec['subst']} ({rec['subst_replayed']} in replays); warm call "
+        f"{rec['warm']} (B, M, path) "
+        f"{dict(Counter(x[:3] for x in shapes[0]))} "
+        f"first_call_s={first_s:.3f} warm_s={[round(w, 4) for w in warm_s]} "
+        f"audio_s_per_s={len(sig) / FS / min(warm_s):.3f} "
+        f"fused={res.fused} warm_fused={warm.fused} "
         f"stages={ {k: round(v, 4) for k, v in warm.timings.items()} } "
         f"tiers={res.tiers}")
-    assert launches > 0, f"{dtype_name}: chol_solve never launched"
-    if dtype_name == "float32":
-        # "pallas": one factorization and one substitution per batch
-        assert len(subst) == launches, (launches, len(subst))
-    return res, (fused, subst), first_s
+    return res, warm, shapes, rec, first_s
+
+
+def check_fixture(res, ref, what):
+    """float64: the JAX fixture's adaptation count, SRER within 1e-6 dB,
+    s_recon and det_ak within 1e-8."""
+    d_srer = float(np.max(np.abs(np.asarray(res.srer) - ref["srer"]))) \
+        if len(res.srer) == len(ref["srer"]) else float("inf")
+    d_wave = float(np.max(np.abs(res.s_recon - ref["s_recon"])))
+    d_ak = float(np.max(np.abs(res.det_ak - ref["det_ak"])))
+    log(f"{what} vs JAX fixture: adaptations {len(res.srer)} vs "
+        f"{len(ref['srer'])}, max|dSRER|={d_srer:.3e} dB (<= {SRER_TOL_DB}), "
+        f"max|ds_recon|={d_wave:.3e} (<= {WAVE_TOL}), "
+        f"max|ddet_ak|={d_ak:.3e} (<= {WAVE_TOL})")
+    assert len(res.srer) == len(ref["srer"])
+    assert d_srer <= SRER_TOL_DB and d_wave <= WAVE_TOL and d_ak <= WAVE_TOL
+
+
+def check_gate(res, ref, what):
+    """float32: finite, the fixture's shape, final SRER >= reference - 0.1
+    dB (bench.py:89)."""
+    final, final_ref = max(res.srer), float(np.max(ref["srer"]))
+    log(f"{what}: final SRER {final:.6f} dB vs reference {final_ref:.6f} dB "
+        f"(gate >= -{F32_GATE_DB} dB: delta {final - final_ref:+.6f}); "
+        f"trajectory {res.srer}")
+    assert np.all(np.isfinite(res.srer))
+    assert final >= final_ref - F32_GATE_DB
+    assert np.all(np.isfinite(res.s_recon))
+    assert res.s_recon.shape == ref["s_recon"].shape
+
+
+def check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec, **kw):
+    """The fused loop ran every eaQHM adaptation after the capture as one
+    graph replay.  First call: adaptations 0 and 1 eager, then one replay
+    per further adaptation; warm call (graph cached): adaptation 0 eager and
+    every eaQHM adaptation a replay, the kernel launched inside each replay,
+    and no eager launch beyond those of adaptation 0 alone (counted on a
+    max_adaptations=0 run of the same configuration)."""
+    n = len(res.srer)
+    assert res.fused["eager"] == 2 and res.fused["replays"] == n - 2, \
+        res.fused
+    assert warm.fused["eager"] == 1 and warm.fused["replays"] == n - 1, \
+        warm.fused
+    assert warm.fused["cached_graph"] and len(warm.srer) == n
+    w = rec["warm"]
+    per_replay = w["replayed"] // warm.fused["replays"]
+    assert per_replay > 0 and w["replayed"] == per_replay * (n - 1), w
+    chol.reset_counts()
+    eaqhm_torch.analyze(sig, FS, eaqhm_torch.EaqhmConfig(
+        gender="female", max_adaptations=0, **kw), device="cuda")
+    torch.cuda.synchronize()
+    adapt0 = (chol.chol_solve.launches, chol.chol_subst.launches)
+    eager = (w["launches"] - w["replayed"], w["subst"] - w["subst_replayed"])
+    assert eager == adapt0, (eager, adapt0)
+    log(f"fused: {warm.fused['replays']} graph replays for {n - 1} eaQHM "
+        f"adaptations, {per_replay} factor + solve launches and "
+        f"{w['subst_replayed'] // warm.fused['replays']} substitutions "
+        f"inside each replay; eager launches {eager} == adaptation 0's "
+        f"{adapt0}; capture {res.fused['capture_s']:.3f} s")
+
+
+def dsp_phase(torch, filters, vad, sig):
+    """float64 filtfilt on the card against scipy (the VAD's two filters on
+    the resynthesis), and the device VAD against the host VAD.  Returns the
+    lfilter launches of the VAD path (counts set to 0 just before it)."""
+    from scipy.signal import filtfilt
+    x = torch.as_tensor(sig, dtype=torch.float64, device="cuda")
+    for fc, ftype in ((30, "highpass"), (1500, "lowpass")):
+        b, a, zi = filters.design_ellip(float(FS), float(fc), ftype)
+        y = filters.filtfilt(b, a, zi, x).cpu().numpy()
+        err = float(np.max(np.abs(y - filtfilt(b, a, sig))))
+        log(f"dsp filtfilt float64 {fc} Hz {ftype} on the card vs scipy: "
+            f"max_abs_err={err:.3e} (asserted <= 1e-10)")
+        assert err <= 1e-10, (fc, err)
+    filters.reset_counts()
+    ti, sp, vo, fstep = vad.voiced_unvoiced_frames(x, FS, False)
+    torch.cuda.synchronize()
+    shapes = list(filters.lfilter.shapes)
+    assert filters.lfilter.launches == len(shapes) == 4
+    assert filters.lfilter.plain_calls == 0
+    t0 = time.time()
+    vad.voiced_unvoiced_frames(x, FS, False)
+    torch.cuda.synchronize()
+    vad_s = time.time() - t0
+    hti, hsp, hvo, hstep = vad.voiced_unvoiced_frames_host(sig, FS, False)
+    flips = (int((sp.cpu().numpy() != hsp).sum()),
+             int((vo.cpu().numpy() != hvo).sum()))
+    log(f"device VAD on the card vs host VAD: {len(ti)} frames, flag flips "
+        f"(speech, voiced) {flips} (asserted 0), lfilter launches "
+        f"{len(shapes)} {sorted(set(shapes))}, warm_s={vad_s:.4f}")
+    assert np.array_equal(ti, hti) and fstep == hstep and flips == (0, 0)
+    return shapes
+
+
+def cli_phase(torch, eaqhm_torch, io, sig):
+    """python -m eaqhm_torch.cli on a wav of the resynthesis, as a
+    subprocess on the card (float32, the default solve), against the API on
+    the same file."""
+    import tempfile
+    scratch = os.path.join(ROOT, "eaqhm_torch", "kernels", "build")
+    os.makedirs(scratch, exist_ok=True)        # listed in .gitignore
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        wav = os.path.join(d, "sa19_resynth.wav")
+        io.write_wav(wav, FS, sig)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "eaqhm_torch.cli", wav, "--gender",
+             "female", "--json", "--quiet", "--out",
+             os.path.join(d, "out.wav")], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        cli_s = time.time() - t0
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        payload = json.loads(proc.stdout.strip().splitlines()[-1])
+        fs, s = io.read_wav(wav)
+        api = eaqhm_torch.analyze(s, fs, eaqhm_torch.EaqhmConfig(
+            gender="female"), device="cuda")
+        out = io.read_wav(os.path.join(d, "out.wav"))[1]
+    d_final = abs(payload["final_srer_db"] - max(api.srer))
+    log(f"cli: subprocess {cli_s:.2f} s (process start, kernel load, first "
+        f"call), final SRER {payload['final_srer_db']:.6f} dB vs API "
+        f"{max(api.srer):.6f} dB (|d| {d_final:.3e}, asserted <= 1e-9), "
+        f"trajectory {payload['srer_db']}, output {out.shape}")
+    assert d_final <= 1e-9 and len(payload["srer_db"]) == len(api.srer)
+    assert out.shape == api.s_recon.shape
+
+
+def lfilter_line_entry(torch, filters, shapes):
+    """The lfilter kernel at every launch the VAD path made, on seeded
+    inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
+    to its plain version on the card (the same roundings in the same order),
+    timed against it.  Bound: x read and y written once, 2 * order + 1
+    products and 2 * order sums per sample, FP64 outside the tensor cores."""
+    b, a, zi = filters.design_ellip(float(FS), 30.0, "highpass")
+    bn, an = b / a[0], a / a[0]
+    k_ms = p_ms = err = 0.0
+    for i, ((rows, n, order, dt), count) in enumerate(
+            sorted(Counter(shapes).items())):
+        rng = np.random.default_rng(3000 + i)
+        x = torch.as_tensor(rng.normal(size=(rows, n)), device="cuda")
+        z0 = torch.as_tensor(zi.copy(), device="cuda").expand(
+            rows, order).contiguous()
+        y, zf = filters.lfilter_with_state(b, a, x, zi=z0)
+        t0 = time.time()
+        yr, zr = filters.lfilter_reference(bn, an, x, z0)
+        torch.cuda.synchronize()
+        p_ms += count * (time.time() - t0) * 1e3
+        e = max((y - yr).abs().max().item(), (zf - zr).abs().max().item())
+        log(f"kernel lfilter {dt} rows={rows} n={n} order={order} "
+            f"x{count}: max_abs_err={e:.3e} (asserted == 0)")
+        assert e == 0.0, e
+        err = max(err, e)
+        k_ms += count * cuda_ms(
+            lambda: filters.lfilter_with_state(b, a, x, zi=z0), 5)
+    nbytes = sum(rows * n * 16 for rows, n, _, _ in shapes)
+    flops = sum(rows * n * (4 * order + 2) for rows, n, order, _ in shapes)
+    bnd, by = bound_ms(nbytes, flops, "float64")
+    return {"name": "lfilter[float64]", "route": "cuda",
+            "source": "eaqhm_torch/kernels/csrc/lfilter.cu",
+            "replaces": "eaqhm_tpu/ops/filters.py:59",
+            "launches": len(shapes),
+            "launches_by_path": {"vad_device": len(shapes)},
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
 def main():
@@ -325,7 +513,9 @@ def main():
     sys.path.insert(0, ROOT)
     import eaqhm_torch
     from eaqhm_torch.kernels import build
-    from eaqhm_torch.ops import chol, solver
+    from eaqhm_torch.models import vad
+    from eaqhm_torch.ops import chol, filters, solver
+    from eaqhm_torch.utils import io
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -338,10 +528,10 @@ def main():
     assert torch.get_float32_matmul_precision() == "highest"
 
     t0 = time.time()
-    for name in build.KERNELS:
-        build.load(name)
+    build.load_all()
     build_s = time.time() - t0
-    log(f"kernel build: {build_s:.2f} s ({list(build.KERNELS)})")
+    log(f"kernel build: {build_s:.2f} s ({list(build.KERNELS)}, one nvcc "
+        f"per source, started together)")
 
     worst = kernel_phase(torch, chol)
     log(f"kernel phase max relative error: {worst}")
@@ -350,37 +540,60 @@ def main():
 
     ref = np.load(os.path.join(GOLDEN, "torch_smoke_ref.npz"))
     sig = np.load(os.path.join(GOLDEN, "sa19_golden.npz"))["s_recon"]
+    shapes = {"complex128": {}, "complex64": {}}
 
-    res64, shapes64, first64 = run_main_path(torch, chol, eaqhm_torch, sig,
-                                        "float64")
+    res, _, shapes["complex128"]["float64_host"], _, first64 = run_path(
+        torch, chol, eaqhm_torch, sig, "float64 host loop",
+        dtype="float64")
     log(f"float64 warm-up (kernel build + first call): "
         f"{build_s + first64:.3f} s")
-    d_srer = float(np.max(np.abs(np.asarray(res64.srer) - ref["srer"]))) \
-        if len(res64.srer) == len(ref["srer"]) else float("inf")
-    d_wave = float(np.max(np.abs(res64.s_recon - ref["s_recon"])))
-    d_ak = float(np.max(np.abs(res64.det_ak - ref["det_ak"])))
-    log(f"float64 vs JAX fixture: adaptations {len(res64.srer)} vs "
-        f"{len(ref['srer'])}, max|dSRER|={d_srer:.3e} dB (<= {SRER_TOL_DB}), "
-        f"max|ds_recon|={d_wave:.3e} (<= {WAVE_TOL}), "
-        f"max|ddet_ak|={d_ak:.3e} (<= {WAVE_TOL})")
-    assert len(res64.srer) == len(ref["srer"])
-    assert d_srer <= SRER_TOL_DB and d_wave <= WAVE_TOL and d_ak <= WAVE_TOL
+    check_fixture(res, ref, "float64 host loop")
 
-    res32, shapes32, first32 = run_main_path(torch, chol, eaqhm_torch, sig,
-                                        "float32")
-    final32, final_ref = max(res32.srer), float(np.max(ref["srer"]))
-    log(f"float32 warm-up (first call): {first32:.3f} s; final SRER "
-        f"{final32:.6f} dB vs reference {final_ref:.6f} dB "
-        f"(gate >= -{F32_GATE_DB} dB: delta {final32 - final_ref:+.6f})")
-    assert np.all(np.isfinite(res32.srer))
-    assert final32 >= final_ref - F32_GATE_DB
-    assert np.all(np.isfinite(res32.s_recon))
-    assert res32.s_recon.shape == ref["s_recon"].shape
+    res, _, sh, rec, _ = run_path(
+        torch, chol, eaqhm_torch, sig, "float32 pallas", dtype="float32",
+        solve_method="pallas")
+    shapes["complex64"]["float32_pallas"] = sh
+    check_gate(res, ref, "float32 pallas")
+    # "pallas": one factorization and one substitution per batch
+    assert rec["launches"] == rec["subst"] > 0, rec
 
-    kernels = [
-        kernel_line_entry(torch, chol, torch.complex128, *shapes64),
-        kernel_line_entry(torch, chol, torch.complex64, *shapes32),
-    ]
+    res, _, sh, rec, _ = run_path(
+        torch, chol, eaqhm_torch, sig, "float32 block_inverse (default)",
+        dtype="float32")
+    shapes["complex64"]["float32_block_inverse"] = sh
+    check_gate(res, ref, "float32 block_inverse")
+
+    res, warm, sh, rec, _ = run_path(
+        torch, chol, eaqhm_torch, sig, "float64 fused loop",
+        dtype="float64", fused_adapt_loop=True)
+    shapes["complex128"]["float64_fused"] = sh
+    check_fixture(res, ref, "float64 fused loop (first call)")
+    check_fixture(warm, ref, "float64 fused loop (warm call)")
+    check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
+                dtype="float64", fused_adapt_loop=True)
+
+    res, warm, sh, rec, _ = run_path(
+        torch, chol, eaqhm_torch, sig, "float32 fused loop",
+        dtype="float32", fused_adapt_loop=True)
+    shapes["complex64"]["float32_fused"] = sh
+    check_gate(res, ref, "float32 fused loop (first call)")
+    check_gate(warm, ref, "float32 fused loop (warm call)")
+    check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
+                dtype="float32", fused_adapt_loop=True)
+
+    lf_shapes = dsp_phase(torch, filters, vad, sig)
+    cli_phase(torch, eaqhm_torch, io, sig)
+
+    kernels = []
+    for cname, dt in (("complex128", torch.complex128),
+                      ("complex64", torch.complex64)):
+        fused = [x for sh in shapes[cname].values() for x in sh[0]]
+        subst = [x for sh in shapes[cname].values() for x in sh[1]]
+        entry = kernel_line_entry(torch, chol, dt, fused, subst)
+        entry["launches_by_path"] = {k: len(f) + len(u) for k, (f, u)
+                                     in shapes[cname].items()}
+        kernels.append(entry)
+    kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -49,20 +49,25 @@ class EaqhmConfig:
     # ---- numerics / device knobs ----
     # "auto": float32 on CUDA, float64 on the CPU (parity tests)
     dtype: str = "auto"             # "auto" | "float32" | "float64"
-    # LS solve: "auto" -> "cholesky" for float64, "pallas" for float32.
-    # "cholesky" is one hand-kernel solve, NaN on a failed pivot (float32:
-    # ridged rerun on a non-finite batch); "pallas" is a complex64 solve
-    # with the Pallas pivot guard plus one refinement step (one
-    # factorization, two substitutions).  Both run the CUDA Cholesky kernel
-    # on the card (ops.chol).
+    # LS solve, as the JAX package picks it: "auto" -> "cholesky" for
+    # float64, "block_inverse" for float32.  "block_inverse" is the
+    # recursive Schur-complement inverse plus two refinements (float32: a
+    # ridged rerun on the Cholesky kernel when the batch is non-finite or
+    # the returned solution's residual exceeds 1e-3 of the right-hand
+    # side); "cholesky" is one hand-kernel
+    # solve, NaN on a failed pivot (float32: ridged rerun on a non-finite
+    # batch); "pallas" is a complex64 solve with the Pallas pivot guard plus
+    # one refinement step (one factorization, two substitutions).  The
+    # Cholesky kernel (ops.chol) is CUDA C++ on the card.
     solve_method: str = "auto"      # "auto"|"block_inverse"|"cholesky"|"pallas"
     # replicate reference quirks needed for bit-comparable SRER
     replicate_quirks: bool = True
     # keep-previous-on-decline convergence rule (functions.py:394-402)
     stop_on_decline: bool = True
-    # per-adaptation accepted-harmonic counts (not ported yet)
+    # per-adaptation accepted-harmonic counts
     collect_metrics: bool = False
-    # whole adaptation loop as one device program (not ported yet)
+    # every eaQHM adaptation as one CUDA graph replay (with stop_on_decline
+    # and without collect_metrics, as in the JAX package)
     fused_adapt_loop: bool = False
     # quantize the signal length to 4096-sample pages and the harmonic
     # tiers to a fixed lattice; exact (zero window weight and identity

@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface under ``build/`` (listed in .gitignore) and loaded
 with ``ctypes``.  The library name carries a hash of the source and flags, so
 an edited source is rebuilt at first use and an unchanged one is reused.
-Nothing is built or loaded when this module is imported.
+Nothing is built or loaded when this module is imported; ``load_all`` builds
+every kernel at once, one nvcc per source, all started together.
 """
 from __future__ import annotations
 
@@ -21,15 +22,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # library name -> (source file, {symbol: argtypes})
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "chol_solve": ("chol_solve.cu", {
         "chol_path": [_I, _I],
+        "chol_prepare": [],
         "chol_phase_clocks": [_P],
         "chol_factor_solve_c64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "chol_factor_solve_c128": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
         "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
+    }),
+    "lfilter": ("lfilter.cu", {
+        "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
+        "lfilter_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
     }),
 }
 
@@ -53,20 +59,31 @@ def _lib_path(name: str, flags: tuple) -> str:
     return os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def _compile(name: str, flags: tuple) -> str:
+def _start(name: str, flags: tuple):
+    """Start nvcc for one library unless it is built: (out, None) or
+    (out, (process, temporary output))."""
     out = _lib_path(name, flags)
     if os.path.exists(out):
-        return out
+        return out, None
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp,
            os.path.join(CSRC, KERNELS[name][0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, (proc, tmp)
+
+
+def _finish(name: str, out: str, job) -> str:
+    if job is None:
+        return out
+    proc, tmp = job
+    _, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{err}")
     os.replace(tmp, out)       # atomic: a concurrent build sees all or none
     with open(out + ".ptxas.txt", "w") as f:
-        f.write(proc.stderr)
+        f.write(err)
     return out
 
 
@@ -77,10 +94,23 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     key = (name, tuple(defines))
     if key not in _loaded:
         flags = tuple(NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
-        lib = ctypes.CDLL(_compile(name, flags))
-        for sym, argtypes in KERNELS[name][1].items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded[key] = lib
+        _bind(key, _finish(name, *_start(name, flags)))
     return _loaded[key]
+
+
+def load_all() -> None:
+    """Build every kernel of ``KERNELS`` (plain build), one nvcc per
+    source started together, and load them."""
+    jobs = {name: _start(name, tuple(NVCC_FLAGS)) for name in KERNELS
+            if (name, ()) not in _loaded}
+    for name, (out, job) in jobs.items():
+        _bind((name, ()), _finish(name, out, job))
+
+
+def _bind(key, path: str) -> None:
+    lib = ctypes.CDLL(path)
+    for sym, argtypes in KERNELS[key[0]][1].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _loaded[key] = lib

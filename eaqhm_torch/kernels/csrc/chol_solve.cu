@@ -602,14 +602,33 @@ chol_subst_kernel(const typename Cplx<T>::type* __restrict__ L,
 }
 
 template <typename K>
-int prepare(K kernel, size_t smem) {
+int prepare(K kernel) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   return (int)e;
+}
+
+// Opt every kernel of this file in to the largest dynamic shared memory,
+// once per process (the first launch, or chol_prepare ahead of a CUDA
+// graph capture): the launches themselves then make no other CUDA call,
+// so they are captured as they are.
+int prepare_all() {
+  static int state = -1;
+  if (state == 0) return 0;
+  int e = prepare(chol_factor_solve_kernel<float, true>);
+  if (!e) e = prepare(chol_factor_solve_kernel<float, false>);
+  if (!e) e = prepare(chol_factor_solve_kernel<double, true>);
+  if (!e) e = prepare(chol_factor_solve_kernel<double, false>);
+  if (!e) e = prepare(chol_subst_kernel<float, true>);
+  if (!e) e = prepare(chol_subst_kernel<float, false>);
+  if (!e) e = prepare(chol_subst_kernel<double, true>);
+  if (!e) e = prepare(chol_subst_kernel<double, false>);
+  state = e;
+  return e;
 }
 
 template <typename T>
@@ -629,15 +648,12 @@ int launch_factor_solve(const void* R, const void* rhs, void* x, void* L,
   if (path < 0 || (path == 1 && L == nullptr)) return (int)cudaErrorInvalidValue;
   const bool resident = path == 0;
   const size_t smem = smem_bytes<T>(M, resident);
-  int e;
+  const int e = prepare_all();
+  if (e) return e;
   if (resident) {
-    e = prepare(chol_factor_solve_kernel<T, true>, smem);
-    if (e) return e;
     chol_factor_solve_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(
         (const C*)R, (const C*)rhs, (C*)x, (C*)L, (T*)d, M, nan_mode);
   } else {
-    e = prepare(chol_factor_solve_kernel<T, false>, smem);
-    if (e) return e;
     chol_factor_solve_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(
         (const C*)R, (const C*)rhs, (C*)x, (C*)L, (T*)d, M, nan_mode);
   }
@@ -654,15 +670,12 @@ int launch_subst(const void* L, const void* d, const void* rhs, void* x, int B,
   const bool staged = path == 0;
   const size_t smem = ((size_t)M + (staged ? (size_t)tri_off(M) : 0)) *
                           sizeof(C) + (size_t)M * sizeof(T);
-  int e;
+  const int e = prepare_all();
+  if (e) return e;
   if (staged) {
-    e = prepare(chol_subst_kernel<T, true>, smem);
-    if (e) return e;
     chol_subst_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(
         (const C*)L, (const T*)d, (const C*)rhs, (C*)x, M);
   } else {
-    e = prepare(chol_subst_kernel<T, false>, smem);
-    if (e) return e;
     chol_subst_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(
         (const C*)L, (const T*)d, (const C*)rhs, (C*)x, M);
   }
@@ -672,6 +685,10 @@ int launch_subst(const void* L, const void* d, const void* rhs, void* x, int B,
 }  // namespace
 
 extern "C" {
+
+// Set the kernels' shared-memory attributes now (launches do it at first
+// use otherwise).  Returns the cudaError_t (0 on success).
+int chol_prepare() { return prepare_all(); }
 
 // Profiling build: copies the phase clocks (see CHOL_PHASE_CLOCKS) to
 // out[8] and zeroes them; -1 in the normal build.

@@ -1,15 +1,20 @@
-"""eaQHM engine: per-adaptation analysis/synthesis + host adaptation loop.
+"""eaQHM engine: per-adaptation analysis/synthesis + the adaptation loop.
 
 Reference parity target: functions.py:35-418 `eaQHMAnalysisAndSynthesis`.
 Dense [length, K] track arrays with boolean masks replace per-frame Python
-loops.  Each adaptation is batched device work (Gram builds and Cholesky
-solves per harmonic tier, acceptance, track interpolation, synthesis, SRER);
-the adaptation loop and its keep-previous-on-decline rule
-(functions.py:394-402) run on the host, one scalar fetch per adaptation.
+loops.  Each adaptation is batched device work (Gram builds and solves per
+harmonic tier, acceptance, track interpolation, synthesis, SRER).  The
+adaptation loop and its keep-previous-on-decline rule (functions.py:394-402)
+run on the host, one scalar fetch per adaptation, or, with
+``fused_adapt_loop``, as the JAX package's fused loop
+(eaqhm_tpu/models/engine.py:572-626): every eaQHM adaptation is one step
+over static buffers with the keep-best select done on the device, captured
+once as a CUDA graph and replayed (``_FusedLoop``).
 """
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -18,11 +23,13 @@ import torch
 from torch.profiler import record_function
 
 from eaqhm_torch.config import EaqhmConfig
+from eaqhm_torch.device import resolve_device
 from eaqhm_torch.models import swipe as swipe_mod
 from eaqhm_torch.models import vad as vad_mod
 from eaqhm_torch.models.tracks import interpolate_tracks_anchors
-from eaqhm_torch.ops import filters, interp, solver
+from eaqhm_torch.ops import chol, filters, interp, solver
 from eaqhm_torch.utils import io as io_mod
+from eaqhm_torch.utils.progress import progress_bar
 
 DEAD_TRACK_F0 = 140.0    # reference functions.py:209
 DEAD_TRACK_AM = 1e-3     # reference functions.py:210 (10e-4)
@@ -72,10 +79,14 @@ class EaqhmResult:
     elapsed: float = 0.0
     f0_grid: Optional[np.ndarray] = None
     timings: dict = field(default_factory=dict)
-    # per-adaptation srer_db and seconds
+    # per-adaptation srer_db, seconds (and accepted_harmonics with
+    # collect_metrics)
     metrics: List[dict] = field(default_factory=list)
     # harmonic tiers as (frames, window half-width W, harmonic bound Kc)
     tiers: List[Tuple[int, int, int]] = field(default_factory=list)
+    # the fused loop's record (None for the host loop): adaptations run
+    # eagerly, graph replays, whether this call captured the graph
+    fused: Optional[dict] = None
 
 
 @dataclass
@@ -351,9 +362,10 @@ def _combine_buckets(parts, idx_list, No: int, Kcm: int, dtype):
     return a0[:No], am[:No], fm[:No], ph[:No], acc[:No]
 
 
-def _masked_srer(det, s_rec, std_det: float, n_valid: int):
+def _masked_srer(det, s_rec, std_det, n_valid: int):
     """SRER over the first n_valid samples (padded tail excluded):
-    20*log10(std_det/std(det - s_rec)) (reference functions.py:388)."""
+    20*log10(std_det/std(det - s_rec)) (reference functions.py:388).
+    std_det: a 0-d tensor of det's dtype."""
     resid = det - s_rec
     m = (torch.arange(resid.shape[0], device=det.device) < n_valid).to(
         det.dtype)
@@ -379,7 +391,9 @@ def _scatter_and_interp(a0_val, am, fm, ph, acc, voiced, length: int,
 
 class _Adapter:
     """Device state of one utterance's adaptations: the signal, the tier
-    tensors (uploaded once) and the synthesis geometry."""
+    tensors (uploaded once) and the synthesis geometry.  Every value that
+    differs between utterances of one geometry is a tensor (``load`` copies
+    them in), so a captured adaptation serves them all."""
 
     def __init__(self, s, det, geo: Geometry, config: EaqhmConfig, fs: int,
                  method):
@@ -392,6 +406,7 @@ class _Adapter:
         self.chunk = int(config.chunk)
         self.method = method
         self.Kcm = max(kc for _, _, kc in geo.buckets)
+        self.std_det = torch.tensor(geo.std_det, dtype=s.dtype, device=dev)
         self.tiers = []
         for gi, W, Kc in geo.buckets:
             self.tiers.append(dict(
@@ -408,6 +423,25 @@ class _Adapter:
             voiced[t["idx"]] = True
         self.voiced = voiced
 
+    def key(self, do_update: bool):
+        """Everything an adaptation's launches depend on besides the
+        adapter's tensors: the geometry (as the JAX package keys its
+        compiled programs), dtype, device, solve method and update rule."""
+        g = self.geo
+        return (self.s.device, self.s.dtype, g.Lpad, g.length, self.fs,
+                self.step, self.chunk, self.method, do_update,
+                tuple((t["idx"].shape[0], t["W"], t["Kc"])
+                      for t in self.tiers))
+
+    def load(self, other: "_Adapter") -> None:
+        """Copy another utterance's tensors of the same key in."""
+        for name in ("s", "det", "std_det", "all_centers", "voiced"):
+            getattr(self, name).copy_(getattr(other, name))
+        for t, u in zip(self.tiers, other.tiers):
+            for name in ("idx", "centers", "f0", "K", "wl"):
+                t[name].copy_(u[name])
+        self.geo = other.geo
+
     def _finish(self, parts):
         g = self.geo
         with record_function("eaqhm/tracks"):
@@ -416,7 +450,7 @@ class _Adapter:
                 self.s.dtype)
             out = _scatter_and_interp(a0_v, am_v, fm_v, ph_v, acc_v,
                                       self.voiced, g.Lpad, self.step, self.fs)
-            srer = _masked_srer(self.det, out[-1], g.std_det, g.length)
+            srer = _masked_srer(self.det, out[-1], self.std_det, g.length)
         return (*out, srer)
 
     def adapt0(self):
@@ -426,16 +460,16 @@ class _Adapter:
                              self.method) for t in self.tiers]
         return self._finish(parts)
 
-    def adapt(self, fm_current, am_current, h: float, do_update: bool):
-        """Adaptation >= 1.  The dead-track overlay is computed over all
-        analyzed frames before the per-tier fits, so every tier's windows
-        see every dead frame as the reference's in-place writes would."""
+    def adapt(self, fm_current, am_current, h, do_update: bool):
+        """Adaptation >= 1; h: 0-d tensor, the fm-mismatch bound.  The
+        dead-track overlay is computed over all analyzed frames before the
+        per-tier fits, so every tier's windows see every dead frame as the
+        reference's in-place writes would."""
         mask_all = fm_current[self.all_centers] != 0           # [Nv, Kcm]
         dead_all = ~mask_all.any(dim=1)
         dead_center = torch.zeros(self.s.shape[0], dtype=torch.bool,
                                   device=self.s.device)
         dead_center[self.all_centers] = dead_all
-        h_t = torch.as_tensor(h, dtype=self.s.dtype, device=self.s.device)
         parts = []
         off = 0
         for t in self.tiers:
@@ -446,7 +480,7 @@ class _Adapter:
             mk = torch.where(dd[:, None], first, mask_all[off:off + nb, :Kb])
             parts.append(_eaqhm_bucket(
                 self.s, fm_current, am_current, t["centers"], t["wl"], dd, mk,
-                dead_center, h_t, do_update, t["W"], Kb, self.fs, self.chunk,
+                dead_center, h, do_update, t["W"], Kb, self.fs, self.chunk,
                 self.method))
             off += nb
         return self._finish(parts)
@@ -461,8 +495,210 @@ def _package_strided(am, fm, ph, a0, s_recon, step: int, No: int):
     return stk, torch.cat([a0[:hi:step], s_recon])
 
 
+# Captured adaptations of recent geometries (CUDA only), most recent last.
+_GRAPH_CACHE_SIZE = 4
+_graphs: "OrderedDict[tuple, _FusedLoop]" = OrderedDict()
+
+
+def clear_graph_cache() -> None:
+    """Drop every captured adaptation graph and its memory pool."""
+    _graphs.clear()
+
+
+class _FusedLoop:
+    """The fused adaptation loop (JAX engine.py:572-626) of one geometry.
+
+    ``step`` is one eaQHM adaptation over static buffers: fits, solves,
+    combine, tracks, synthesis and SRER (``_Adapter.adapt``), the strided
+    package, and the keep-previous-on-decline select done on the device with
+    torch.where (improved = SRER above the previous adaptation's, as the JAX
+    body); it leaves [SRER, stop] in ``out``, the one value the host reads
+    per adaptation.  On the CPU each adaptation runs the step eagerly.  On
+    CUDA the first eaQHM adaptation of a new geometry runs the step eagerly
+    on the capture stream (it is the call's adaptation 1, not a throwaway
+    run: it creates the library handles and workspaces the capture needs);
+    the step is then captured once as a CUDA graph and every further
+    adaptation is one replay, with the fm-mismatch bound h written to its
+    static scalar before it.  The graph stays in a cache keyed by the
+    geometry (``_Adapter.key``), so a later call of the same geometry
+    replays from adaptation 1 on.  A failed capture or replay raises: there
+    is no fallback to the host loop.
+    """
+
+    def __init__(self, ad: _Adapter, do_update: bool):
+        self.ad = ad
+        self.do_update = do_update
+        dev, dt = ad.s.device, ad.s.dtype
+        L, K, No = ad.geo.Lpad, ad.Kcm, ad.geo.No_pad
+        self.fm = torch.zeros((L, K), dtype=dt, device=dev)
+        self.am = torch.zeros_like(self.fm)
+        self.h = torch.zeros((), dtype=dt, device=dev)
+        self.prev = torch.zeros((), dtype=dt, device=dev)
+        self.stk = torch.zeros((3, No, K), dtype=dt, device=dev)
+        self.vec = torch.zeros(No + L, dtype=dt, device=dev)
+        self.out = torch.zeros(2, dtype=dt, device=dev)
+        self.graph = None
+        self.captured = None       # kernel launches recorded in the graph
+        self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def step(self) -> None:
+        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer = self.ad.adapt(
+            self.fm, self.am, self.h, self.do_update)
+        improved = srer > self.prev
+        stk, vec = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec,
+                                    self.ad.step, self.ad.geo.No_pad)
+        self.stk.copy_(torch.where(improved, stk, self.stk))
+        self.vec.copy_(torch.where(improved, vec, self.vec))
+        self.prev.copy_(srer)
+        self.fm.copy_(fm_cur)
+        self.am.copy_(am_f)
+        self.out.copy_(torch.stack([srer, (~improved).to(srer.dtype)]))
+
+    def start(self, out0) -> None:
+        """Load adaptation 0's result as the loop's state and best."""
+        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer0 = out0
+        stk, vec = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec,
+                                    self.ad.step, self.ad.geo.No_pad)
+        for buf, val in ((self.fm, fm_cur), (self.am, am_f),
+                         (self.prev, srer0), (self.stk, stk),
+                         (self.vec, vec)):
+            buf.copy_(val)
+
+    def run(self, h: float, record: dict, last: bool):
+        """One eaQHM adaptation with bound h; returns (SRER, stop, seconds
+        of the adaptation up to its SRER on the host, capture excluded)."""
+        t0 = time.time()
+        self.h.fill_(h)
+        if self.graph is not None:
+            self.graph.replay()
+            chol.count_replay(self.captured)
+            record["replays"] += 1
+        elif self.side is None:
+            self.step()
+            record["eager"] += 1
+        else:
+            self.side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.side):
+                self.step()
+            torch.cuda.current_stream().wait_stream(self.side)
+            record["eager"] += 1
+        srer, stop = self.out.tolist()
+        seconds = time.time() - t0
+        if self.graph is None and self.side is not None and not (
+                stop or last):
+            t_c = time.time()
+            chol.library()          # kernel attributes set outside capture
+            chol.take_captured()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self.side):
+                self.step()
+            self.captured = chol.take_captured()
+            self.graph = graph
+            record["capture_s"] = time.time() - t_c
+        return srer, bool(stop), seconds
+
+
+def _fused_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
+                verbose: bool):
+    """Adaptation 0 eagerly, then ``_FusedLoop`` until the SRER declines or
+    max_adaptations.  Returns (srer, fetched package, timings, metrics,
+    record)."""
+    t_a = time.time()
+    key = ad.key(do_update)
+    loop = _graphs.get(key) if ad.s.is_cuda else None
+    if loop is None:
+        loop = _FusedLoop(ad, do_update)
+    else:
+        _graphs.move_to_end(key)
+        loop.ad.load(ad)
+    record = {"eager": 1, "replays": 0, "capture_s": 0.0,
+              "cached_graph": loop.graph is not None}
+    with record_function("eaqhm/adapt_loop"):
+        out0 = loop.ad.adapt0()
+        srer = [float(out0[-1])]
+        seconds = [time.time() - t_a]
+        loop.start(out0)
+        n = config.max_adaptations
+        for a in range(1, n + 1):
+            cur, stop, sec = loop.run(ad.geo.f0_stale / (a + 1), record,
+                                      a == n)
+            srer.append(cur)
+            seconds.append(sec)
+            if stop:
+                break
+        fetched = (loop.stk.cpu().numpy(), loop.vec.cpu().numpy())
+    if loop.graph is not None and key not in _graphs:
+        _graphs[key] = loop
+        while len(_graphs) > _GRAPH_CACHE_SIZE:
+            _graphs.popitem(last=False)
+    dt = time.time() - t_a
+    timings = {"adapt_loop": dt, "graph_capture": record["capture_s"]}
+    metrics = []
+    for a, (v, sec) in enumerate(zip(srer, seconds)):
+        timings[f"adaptation_{a}"] = sec
+        metrics.append({"adaptation": a, "srer_db": v, "seconds": sec})
+        if verbose:
+            print(f"SRER: {v} dB in Adaptation No: {a}")
+    return srer, fetched, timings, metrics, record
+
+
+def _host_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
+               verbose: bool):
+    """The host-driven loop, one SRER fetch per adaptation, with the
+    reference's keep-previous-on-decline rule (functions.py:394-402) or,
+    with stop_on_decline=False, the best so far kept while it goes on
+    (JAX engine.py:1013-1017).  Returns (srer, fetched package, timings,
+    metrics)."""
+    geo = ad.geo
+    bar = progress_bar(total=config.max_adaptations + 1, desc="adaptations",
+                       enabled=config.loading_screen)
+    srer: List[float] = []
+    timings = {}
+    metrics: List[dict] = []
+    best = None
+    fm_cur = am_cur = None
+    h = torch.empty((), dtype=ad.s.dtype, device=ad.s.device)
+    hi = (geo.No_pad - 1) * ad.step + 1
+    for a in range(config.max_adaptations + 1):
+        t_a = time.time()
+        if a == 0:
+            out = ad.adapt0()
+        else:
+            h.fill_(geo.f0_stale / (a + 1))
+            out = ad.adapt(fm_cur, am_cur, h, do_update)
+        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer_t = out
+        am_cur = am_f
+        cur = float(srer_t)
+        srer.append(cur)
+        dt = time.time() - t_a
+        timings[f"adaptation_{a}"] = dt
+        m = {"adaptation": a, "srer_db": cur, "seconds": dt}
+        if config.collect_metrics:
+            m["accepted_harmonics"] = int(torch.count_nonzero(
+                am_f[:hi:ad.step]))
+        metrics.append(m)
+        if bar is not None:
+            bar.set_postfix_str(f"SRER {cur:.3f} dB")
+            bar.update(1)
+        if verbose:
+            print(f"SRER: {cur} dB in Adaptation No: {a}")
+        if a != 0 and srer[a] <= srer[a - 1]:
+            if config.stop_on_decline:
+                break            # keep-previous-on-decline
+            if srer[a] <= max(srer[:a]):
+                continue         # keep the best so far, keep going
+        best = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec, ad.step,
+                                geo.No_pad)
+    if bar is not None:
+        bar.close()
+    t_s = time.time()
+    fetched = (best[0].cpu().numpy(), best[1].cpu().numpy())
+    timings["packaging"] = time.time() - t_s
+    return srer, fetched, timings, metrics
+
+
 def _finish_result(srer, fetched, geo: Geometry, t_start, f0_grid_np,
-                   timings, metrics):
+                   timings, metrics, fused=None):
     """Unpack the fetched DetComponents package into an EaqhmResult
     (reference functions.py:404-411 packaging semantics)."""
     stk, vec = fetched
@@ -488,19 +724,8 @@ def _finish_result(srer, fetched, geo: Geometry, t_start, f0_grid_np,
         timings=timings,
         metrics=metrics,
         tiers=[(len(gi), W, Kc) for gi, W, Kc in geo.buckets],
+        fused=fused,
     )
-
-
-def resolve_device(device=None) -> torch.device:
-    """device=None means CUDA; without CUDA that raises (the port never
-    falls back to the CPU on its own)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "eaqhm_torch runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def resolve_dtype(config: EaqhmConfig, device: torch.device) -> torch.dtype:
@@ -512,11 +737,6 @@ def resolve_dtype(config: EaqhmConfig, device: torch.device) -> torch.dtype:
 
 
 def _check_supported(config: EaqhmConfig, dtype, device) -> None:
-    if config.fused_adapt_loop or config.collect_metrics \
-            or not config.stop_on_decline or config.loading_screen:
-        raise NotImplementedError(
-            "fused_adapt_loop, collect_metrics, stop_on_decline=False and "
-            "loading_screen are not ported yet (ROADMAP queue 1 items 9-10)")
     if device.type == "cuda" and dtype == torch.float32 and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -530,9 +750,12 @@ def analyze(signal, fs: int, config: EaqhmConfig = EaqhmConfig(),
             device=None, verbose: bool = False) -> EaqhmResult:
     """Full eaQHM analysis/synthesis of one utterance.
 
-    Mirrors reference `eaQHMAnalysisAndSynthesis` (functions.py:35-418)
-    with a host adaptation loop around batched device work.  device: None
-    (CUDA, raising when absent), "cuda", "cpu" or a torch.device.
+    Mirrors reference `eaQHMAnalysisAndSynthesis` (functions.py:35-418):
+    batched device work per adaptation, driven by the host loop or (with
+    ``config.fused_adapt_loop``, ``stop_on_decline`` on and
+    ``collect_metrics`` off, as in the JAX package) the fused loop.
+    device: None (CUDA, raising when absent), "cuda", "cpu" or a
+    torch.device.
     """
     t_start = time.time()
     device = resolve_device(device)
@@ -596,37 +819,18 @@ def analyze(signal, fs: int, config: EaqhmConfig = EaqhmConfig(),
     do_update = bool(geo.f0_stale > f0min)
     stage_t["host_geometry"] = time.time() - t_s
 
-    srer: List[float] = []
-    timings = {}
-    metrics: List[dict] = []
-    best = None
-    fm_cur = am_cur = None
-    for a in range(config.max_adaptations + 1):
-        t_a = time.time()
-        if a == 0:
-            out = ad.adapt0()
-        else:
-            out = ad.adapt(fm_cur, am_cur, geo.f0_stale / (a + 1), do_update)
-        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer_t = out
-        am_cur = am_f
-        cur = float(srer_t)
-        srer.append(cur)
-        dt = time.time() - t_a
-        timings[f"adaptation_{a}"] = dt
-        metrics.append({"adaptation": a, "srer_db": cur, "seconds": dt})
-        if verbose:
-            print(f"SRER: {cur} dB in Adaptation No: {a}")
-        if a != 0 and srer[a] <= srer[a - 1]:
-            break            # keep-previous-on-decline (functions.py:394-402)
-        best = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec, step,
-                                geo.No_pad)
-
-    t_s = time.time()
-    fetched = (best[0].cpu().numpy(), best[1].cpu().numpy())
-    stage_t["packaging"] = time.time() - t_s
+    # the fused loop under the JAX package's rule (engine.py:940-941)
+    fused = None
+    if (config.fused_adapt_loop and config.stop_on_decline
+            and not config.collect_metrics):
+        srer, fetched, timings, metrics, fused = _fused_loop(
+            ad, config, do_update, verbose)
+    else:
+        srer, fetched, timings, metrics = _host_loop(ad, config, do_update,
+                                                     verbose)
     timings.update(stage_t)
     return _finish_result(srer, fetched, geo, t_start, f0_grid_np, timings,
-                          metrics)
+                          metrics, fused)
 
 
 def eaqhm_analysis_and_synthesis(speech_file: str, gender="other",

@@ -14,6 +14,7 @@ inter-anchor segment as one [n_pairs, step, K] cumsum.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -24,6 +25,33 @@ from eaqhm_torch.ops.scan import associative_scan
 
 MIN_INTERP_SIZE = 4  # reference misc.py:14
 _CPLEN = 48          # cp fixed point reached to f64 eps by ~24 unknowns
+
+
+# Host-built constants are made on the device once per (shape, dtype,
+# device) and reused: an adaptation captured as a CUDA graph copies nothing
+# from the host.
+@functools.lru_cache(maxsize=64)
+def _cp_table(dtype, device):
+    """Elimination multipliers of the uniform not-a-knot system."""
+    ctab = np.zeros(_CPLEN + 1)
+    for k in range(1, _CPLEN + 1):
+        ctab[k] = 1.0 / (4.0 - ctab[k - 1])
+    return torch.as_tensor(ctab, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _sine_bump(step: int, dtype, device):
+    """Cumulative sine bump of the phase endpoint correction, [step]."""
+    ft_cum = np.cumsum(np.sin(np.pi * np.arange(0, step + 1) / step))
+    return torch.as_tensor(ft_cum[1:], dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _segment_rows(L: int, step: int, n_pairs: int, device):
+    """[L, 1]: rows at offsets 1..step after their segment's left anchor."""
+    slot_of = np.minimum(np.arange(L) // step, n_pairs - 1)
+    r_of = np.arange(L) - slot_of * step
+    return torch.as_tensor((r_of > 0) & (r_of <= step), device=device)[:, None]
 
 
 def _affine(l, r):
@@ -60,11 +88,7 @@ def _segmented_notaknot_M(y, in_run, start_slot, end_slot, h):
     un = interior & ~known
     M_known = d / (6.0 * h)
     zero = torch.zeros((), dtype=dtype, device=dev)
-
-    ctab = np.zeros(_CPLEN + 1)
-    for k in range(1, _CPLEN + 1):
-        ctab[k] = 1.0 / (4.0 - ctab[k - 1])
-    ctab_t = torch.as_tensor(ctab, dtype=dtype, device=dev)
+    ctab_t = _cp_table(dtype, dev)
     prev_block = torch.where(~un, s, -1).cummax(dim=0).values
     pos = (s - prev_block).clamp(0, _CPLEN)
     cp_prev = ctab_t[(pos - 1).clamp(0, _CPLEN)]
@@ -102,9 +126,8 @@ def segment_phase(seg_fm, ph_s, ph_e, step: int, fs: float):
     pm_end = pm[:, -1, :]
     Mw = torch.round((pm_end - ph_e) / (2.0 * math.pi))
     er = math.pi * (pm_end - ph_e - 2.0 * math.pi * Mw) / (2.0 * h)
-    ft_cum = np.cumsum(np.sin(np.pi * np.arange(0, step + 1) / step))
-    corr = er[:, None, :] * torch.as_tensor(
-        ft_cum[1:], dtype=dtype, device=seg_fm.device)[None, :, None]
+    corr = er[:, None, :] * _sine_bump(step, dtype, seg_fm.device)[
+        None, :, None]
     return pm - corr
 
 
@@ -210,11 +233,9 @@ def interpolate_tracks_anchors(A_am, A_fm, A_ph, step: int, fs: float,
     ph_out = assemble(A_ph2, ph_fill)
 
     # ---- fm_current from unwrapped phase diffs (functions.py:375) ----
-    slot_of = np.minimum(np.arange(L) // step, n_pairs - 1)
-    r_of = np.arange(L) - slot_of * step
-    rmask = torch.as_tensor((r_of > 0) & (r_of <= step), device=dev)[:, None]
+    rmask = _segment_rows(L, step, n_pairs, dev)
     pair_dense = torch.cat(
-        [pair.repeat_interleave(step, dim=0),
+        [pair[:, None, :].expand(n_pairs, step, K).reshape(-1, K),
          pair[-1:].expand(L - n_pairs * step, K)], dim=0)
     cov = (pair_dense & rmask) | strided(in_run)
     dph = ph_out - torch.cat([ph_out[:1], ph_out[:-1]], dim=0)

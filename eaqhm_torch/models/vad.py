@@ -1,4 +1,4 @@
-"""Voiced/unvoiced and speech/nonspeech classification (VAD), on the host.
+"""Voiced/unvoiced and speech/nonspeech classification (VAD).
 
 Reference: functions.py:577-642 `voicedUnvoicedFrames`.  30 ms window on a
 5 ms grid; a 30 Hz elliptic high-pass feeds the full-band energy, a 1000 Hz
@@ -6,15 +6,21 @@ Reference: functions.py:577-642 `voicedUnvoicedFrames`.  30 ms window on a
 speech if full-band energy > -60 dB, voiced if (full - smooth) < 10 dB and
 smooth > -50 dB; both flag tracks are then smoothed.
 
-All of it is numpy/scipy float64: the 30 Hz high-pass has poles at radius
-0.99939 and diverges in float32, and the work is microseconds per utterance.
+The main path runs the host version (numpy/scipy float64, as the JAX
+package's production engine does): the 30 Hz high-pass has poles at radius
+0.99939 and diverges in float32, and the work is microseconds per
+utterance.  ``voiced_unvoiced_frames`` is the device version for
+device-resident pipelines: float64 filtering on the tensor's device
+(ops.filters), one gather and two reductions for the windowed energies.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.signal import filtfilt
 
-from eaqhm_torch.ops import filters
+from eaqhm_torch.device import as_tensor
+from eaqhm_torch.ops import filters, medfilt
 
 
 def _flag_smooth_idx(L: int, p: int, ad: int):
@@ -22,6 +28,20 @@ def _flag_smooth_idx(L: int, p: int, ad: int):
     j = np.arange(p - 1)[None, :]
     idx = np.where(j <= i, L - 1 - i + j, L + (j - i))
     return np.clip(idx, 0, L + 2 * ad - 1)
+
+
+def reference_flag_smooth(flags, p: int = 5, device=None):
+    """The reference's flag "median filter" (see reference_flag_smooth_np).
+    flags: a tensor (kept on its device unless ``device`` is given) or
+    array-like (sent to ``device``; None means CUDA)."""
+    x = as_tensor(flags, device)
+    L = x.shape[-1]
+    ad = (p - 1) // 2
+    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], ad), x,
+                    x[..., -1:].expand(*x.shape[:-1], ad)], dim=-1)
+    idx = torch.as_tensor(_flag_smooth_idx(L, p, ad), device=x.device)
+    count = xp[..., idx].to(torch.int32).sum(dim=-1)
+    return count >= (p - 1) // 2
 
 
 def reference_flag_smooth_np(flags, p: int = 5):
@@ -83,6 +103,58 @@ def voiced_unvoiced_frames_host(s, fs: int, is_male: bool,
                                   mode="nearest") > 0.5
         is_voiced = median_filter(is_voiced.astype(float), size=5,
                                   mode="nearest") > 0.5
+    return ti, is_speech, is_voiced, int(ti[1] - ti[0])
+
+
+def _windowed_std_db(x, ti, window_range, valid):
+    """20 log10 of the std of each analysis window of x, -inf off valid."""
+    idx = np.clip(ti[:, None] + window_range[None, :], 0, x.shape[-1] - 1)
+    win = x[..., torch.as_tensor(idx, device=x.device)]     # [No_ti, wlen]
+    m = win.mean(dim=-1, keepdim=True)
+    std = torch.sqrt(((win - m) ** 2).mean(dim=-1))
+    db = 20.0 * torch.log10(std)
+    return torch.where(torch.as_tensor(valid, device=x.device), db,
+                       torch.full_like(db, -torch.inf))
+
+
+def voiced_unvoiced_frames(s, fs: int, is_male: bool, dtype=torch.float64,
+                           replicate_quirks: bool = True, device=None):
+    """Device VAD: the host version's function on the signal's device.
+
+    s: a tensor (kept on its device unless ``device`` is given) or
+    array-like (sent to ``device``; None means CUDA).  Returns (ti [No] numpy, is_speech [No] bool tensor, is_voiced [No] bool
+    tensor, frame_step); ti are 1-based sample instants.  Needs float64 for
+    the 30 Hz high-pass.
+    """
+    s = as_tensor(s, device).to(dtype)
+    length = s.shape[-1]
+    sf = filters.ellip_filter(s, fs, 30, "highpass", dtype=dtype)
+    sm = filters.ellip_filter(sf, fs, 1000 if is_male else 1500, "lowpass",
+                              dtype=dtype)
+
+    window_len = int(round(0.03 * fs))
+    if window_len % 2 == 0:
+        window_len += 1
+    step = int(round(0.005 * fs))
+    midlen = (window_len - 1) // 2
+    wr = np.arange(-midlen - 1, midlen)                 # functions.py:619
+    ti = np.arange(1, length, step)
+    valid = (ti > midlen) & (ti < length - midlen)
+
+    sp_en = _windowed_std_db(sf, ti, wr, valid)
+    sm_en = _windowed_std_db(sm, ti, wr, valid)
+    valid_t = torch.as_tensor(valid, device=s.device)
+    is_speech = valid_t & (sp_en > -60.0)
+    # sp < sm + 10 is (sp - sm) < 10 without the -inf - -inf NaN of silent
+    # frames (functions.py:626-633)
+    is_voiced = is_speech & (sp_en < sm_en + 10.0) & (sm_en > -50.0)
+
+    if replicate_quirks:
+        is_speech = reference_flag_smooth(is_speech, 5)
+        is_voiced = reference_flag_smooth(is_voiced, 5)
+    else:
+        is_speech = medfilt.medfilt(is_speech.to(dtype), 5) > 0.5
+        is_voiced = medfilt.medfilt(is_voiced.to(dtype), 5) > 0.5
     return ti, is_speech, is_voiced, int(ti[1] - ti[0])
 
 

@@ -26,7 +26,10 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version.  ``chol_solve.launches`` / ``chol_subst.launches``
 count kernel launches and ``.shapes`` record each launch: (B, M, path, mode,
 keep_factor) and (B, M, path); ``.plain_calls`` counts the calls served by
-the plain version.
+the plain version.  A launch recorded into a CUDA graph runs at every
+replay, not at capture: it goes to ``.captured``, and the graph's owner
+adds the captured launches to the counts at each replay (``take_captured``,
+``count_replay``; ``.replayed`` counts those).
 """
 from __future__ import annotations
 
@@ -133,10 +136,23 @@ def unpack_factor(f: Factor) -> torch.Tensor:
     return L
 
 
+def library():
+    """The kernel library, its shared-memory attributes set (once, before
+    any launch: a CUDA graph capture then records the launches alone)."""
+    lib = build.load("chol_solve")
+    if not getattr(lib, "prepared", False):
+        err = lib.chol_prepare()
+        if err != 0:
+            raise RuntimeError(f"chol_solve: setting the kernels' shared "
+                               f"memory failed: cudaError {err}")
+        lib.prepared = True
+    return lib
+
+
 def path_for(dtype: torch.dtype, M: int) -> str:
     """The kernel path a system of order M takes: "resident" or "global"
     (needs the built library: call only with CUDA tensors at hand)."""
-    p = build.load("chol_solve").chol_path(M, int(dtype == torch.complex128))
+    p = library().chol_path(M, int(dtype == torch.complex128))
     if p < 0:
         raise ValueError(f"chol_solve: M={M} too large for the kernel "
                          f"({dtype})")
@@ -173,8 +189,7 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
     if keep_factor:
         d = torch.empty((B, M), dtype=R.real.dtype, device=R.device)
     if B:
-        lib = build.load("chol_solve")
-        err = getattr(lib, _SYMBOLS[R.dtype][0])(
+        err = getattr(library(), _SYMBOLS[R.dtype][0])(
             R.data_ptr(), rhs.data_ptr(), x.data_ptr(),
             None if L is None else L.data_ptr(),
             None if d is None else d.data_ptr(),
@@ -182,8 +197,7 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
         if err != 0:
             raise RuntimeError(f"chol_solve kernel launch failed: "
                                f"cudaError {err}")
-        chol_solve.launches += 1
-        chol_solve.shapes.append((B, M, path, mode, keep_factor))
+        _count(chol_solve, (B, M, path, mode, keep_factor))
     return (x, Factor(L, d)) if keep_factor else x
 
 
@@ -208,16 +222,41 @@ def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
                          f"[{B}, {M}] and contiguous tensors")
     x = torch.empty_like(rhs)
     if B:
-        lib = build.load("chol_solve")
-        err = getattr(lib, _SYMBOLS[rhs.dtype][1])(
+        err = getattr(library(), _SYMBOLS[rhs.dtype][1])(
             f.L.data_ptr(), f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(),
             B, M, _stream(rhs.device))
         if err != 0:
             raise RuntimeError(f"chol_subst kernel launch failed: "
                                f"cudaError {err}")
-        chol_subst.launches += 1
-        chol_subst.shapes.append((B, M, path_for(rhs.dtype, M)))
+        _count(chol_subst, (B, M, path_for(rhs.dtype, M)))
     return x
+
+
+def _count(fn, shape) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured.append(shape)
+    else:
+        fn.launches += 1
+        fn.shapes.append(shape)
+
+
+def take_captured() -> dict:
+    """The launches recorded into the CUDA graph just captured, per entry
+    point, and a fresh record for the next capture."""
+    out = {}
+    for fn in (chol_solve, chol_subst):
+        out[fn.__name__] = fn.captured
+        fn.captured = []
+    return out
+
+
+def count_replay(captured: dict) -> None:
+    """Count the launches of one replay of a graph (``take_captured``)."""
+    for fn in (chol_solve, chol_subst):
+        shapes = captured[fn.__name__]
+        fn.launches += len(shapes)
+        fn.replayed += len(shapes)
+        fn.shapes.extend(shapes)
 
 
 def reset_counts() -> None:
@@ -226,6 +265,8 @@ def reset_counts() -> None:
         fn.launches = 0
         fn.shapes = []
         fn.plain_calls = 0
+        fn.captured = []
+        fn.replayed = 0
 
 
 reset_counts()

@@ -7,14 +7,17 @@ All frames of a batch solve at once: windows are padded to a half-width W
 (rows outside a frame's +-wl get window weight 0, which reproduces the
 reference R exactly), harmonic columns are padded to Kc with masked columns
 replaced by identity rows (block-diagonal: the live solution is unchanged),
-and the solve is the batched Cholesky kernel of ``ops.chol``.
+and the solve is the batched Cholesky kernel of ``ops.chol`` or the
+recursive block inverse (float32's default, as in the JAX package).
 
 Shapes: B frames, N = 2W+1 window rows, Kc max harmonic, M = 2(2Kc+1) columns.
 Column slot j: j < Kc -> harmonic -(Kc-j); j == Kc -> DC; j > Kc -> +(j-Kc);
 slots Kc2..2Kc2 are the slope (t*E) block, same order (Kc2 = 2Kc+1).
 
 Only the JAX package's production numerics are ported: the split Gram, the
-integer phase split, no planar embedding.
+integer phase split, the complex block inverse with Gauss-Jordan leaves of 16
+(no planar embedding, no ``EAQHM_GJ_BASE``: a leaf below 16 breaks SA19,
+docs/NUMERICS.md:99-102).
 """
 from __future__ import annotations
 
@@ -25,6 +28,13 @@ import torch
 from eaqhm_torch.ops.chol import chol_solve, chol_subst
 
 _RIDGE = 1e-5
+_REFINE = 2        # residual refinements of the block-inverse solve
+# float32 block inverse: a batch whose returned solution leaves a residual
+# above this share of the right-hand side (infinity norms, any system)
+# reruns ridged.  The readings that place it are in PERF.md
+# (tools/torch_solver_residuals.py).
+_RESID_GATE = 1e-3
+_GJ_BASE = 16      # Gauss-Jordan leaf size of the block recursion
 
 
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -45,9 +55,10 @@ def hamming_window(o, wl):
 
 
 def default_solve_method(rdtype: torch.dtype) -> str:
-    """float64 -> "cholesky" (one solve, the f64 oracle's function);
-    float32 -> "pallas" (a solve plus one refinement step)."""
-    return "cholesky" if rdtype == torch.float64 else "pallas"
+    """The JAX package's rule (eaqhm_tpu/ops/solver.py:185-209): float64 ->
+    "cholesky" (one solve, the f64 oracle's function); float32 ->
+    "block_inverse" at every size."""
+    return "cholesky" if rdtype == torch.float64 else "block_inverse"
 
 
 def _mv(R, x):
@@ -98,6 +109,66 @@ def _refined_solve(R, Rf, rhs, mode):
     return x + chol_subst(f, r).to(R.dtype)
 
 
+def gj_inverse(R):
+    """Batched explicit inverse of small HPD blocks by unrolled Gauss-Jordan
+    elimination with no pivoting (stable for equilibrated positive-definite
+    blocks).  R: [B, m, m]; returns [B, m, m]."""
+    B, m, _ = R.shape
+    eye = torch.eye(m, dtype=R.dtype, device=R.device).expand(B, m, m)
+    A = torch.cat([R, eye], dim=-1)                     # [B, m, 2m]
+    for j in range(m):
+        row = A[:, j, :] / A[:, j, j:j + 1]
+        A = A - A[:, :, j:j + 1] * row[:, None, :]
+        A[:, j, :] = row
+    return A[:, :, m:]
+
+
+def hpd_block_inverse(R):
+    """Batched inverse of Hermitian-positive-definite matrices by recursive
+    Schur-complement block inversion (matrix products only).  For
+    [[P, Q], [Q^H, S]] with T = P^-1 Q and Sc = S - Q^H T:
+
+        inv = [[P^-1 + T Sc^-1 T^H,  -T Sc^-1],
+               [-Sc^-1 T^H,           Sc^-1]]
+
+    Split at m = (M//2 + 7) & ~7 for M >= 32 (M//2 below), Gauss-Jordan
+    leaves of order <= 16, as the JAX package.  R: [B, M, M]."""
+    M = R.shape[-1]
+    if M <= _GJ_BASE:
+        return gj_inverse(R)
+    m = (M // 2 + 7) & ~7 if M >= 32 else M // 2
+    m = min(m, M - 1)
+    P = R[..., :m, :m]
+    Q = R[..., :m, m:]
+    S = R[..., m:, m:]
+    Pi = hpd_block_inverse(P)
+    T = torch.matmul(Pi, Q)
+    Sc = S - torch.matmul(Q.mH, T)
+    Si = hpd_block_inverse(Sc)
+    U = torch.matmul(T, Si)
+    TL = Pi + torch.matmul(U, T.mH)
+    top = torch.cat([TL, -U], dim=-1)
+    bot = torch.cat([-U.mH, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def block_inverse_solve(R, rhs):
+    """x = Ri rhs with Ri the recursive block inverse, then _REFINE residual
+    refinements x += Ri (rhs - R x) (JAX solver.py:316-352)."""
+    Ri = hpd_block_inverse(R)
+    x = _mv(Ri, rhs)
+    for _ in range(_REFINE):
+        x = x + _mv(Ri, rhs - _mv(R, x))
+    return x
+
+
+def residual_ok(R, rhs, x):
+    """0-d bool tensor: every system's residual ||rhs - R x||inf is within
+    _RESID_GATE ||rhs||inf (NaN compares False)."""
+    r = rhs - _mv(R, x)
+    return (r.abs().amax(-1) <= _RESID_GATE * rhs.abs().amax(-1)).all()
+
+
 def _ridge_rerun(R, rhs):
     """Cholesky of R + 1e-5 I plus one refinement against R (the float32
     fallback of solver.py:379-387, jnp.linalg.cholesky there: the "nan"
@@ -106,38 +177,63 @@ def _ridge_rerun(R, rhs):
     return _refined_solve(R, (R + _RIDGE * eye).contiguous(), rhs, "nan")
 
 
+def _finite_or_ridged(R, rhs, x, ok=None):
+    """The float32 fallback: x when every entry is finite (and ``ok``, a
+    0-d bool tensor, holds), else the whole batch rerun ridged
+    (solver.py:351-352,379-390).  Under CUDA graph capture the host cannot
+    branch, so the rerun is always computed and the batch selected on the
+    device with torch.where on the flag: the function JAX's lax.cond
+    computes."""
+    good = torch.isfinite(torch.view_as_real(x)).all()
+    if ok is not None:
+        good = good & ok
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return torch.where(good, x, _ridge_rerun(R, rhs))
+    return x if bool(good) else _ridge_rerun(R, rhs)
+
+
 def solve_gram(R, rhs, rdtype, method=None):
     """Solve equilibrated HPD normal equations R x' = rhs (batched).
 
     R: [B, M, M]; rhs: [B, M]; the caller de-equilibrates (x = x' * dinv).
-    method: None/"auto" (dtype default) | "cholesky" | "pallas".  Both
-    names launch the CUDA kernel on the card (ops.chol), with the pivot
-    rule of the JAX branch they stand for.
-      "cholesky", float64: one solve, NaN on a failed pivot
+    method: None/"auto" (dtype default: float64 "cholesky", float32
+    "block_inverse") | "block_inverse" | "cholesky" | "pallas".
+      "block_inverse": the recursive Schur-complement inverse, x = Ri rhs
+        and two residual refinements (solver.py:316-352), full float32
+        products (TF32 off); for float32 the ridged rerun (the CUDA kernel,
+        "nan" rule) when any entry is non-finite, as in JAX, or when the
+        returned solution's residual exceeds _RESID_GATE of the right-hand
+        side: off the TPU the float32 recursion diverges at M = 194 on
+        SA19 while staying finite (JAX on the CPU and the port on the H100
+        alike), which JAX's finite-only gate lets through;
+      "cholesky", float64: one kernel solve, NaN on a failed pivot
         (solver.py:356-362);
       "cholesky", float32: the same, and when any entry is non-finite a
         ridged rerun plus one refinement (solver.py:363-390);
       "pallas": a complex64 solve with the Pallas kernel's pivot guard plus
         one refinement step, the residual taken in the caller's type
         (solver.py:302-315); one factorization, two substitutions.
+    "cholesky" and "pallas" launch the CUDA kernel on the card (ops.chol)
+    with the pivot rule of the JAX branch they stand for.
     """
     if method in (None, "auto"):
         method = default_solve_method(rdtype)
-    if method == "block_inverse":
-        raise NotImplementedError(
-            "solve_method='block_inverse' is not ported yet (ROADMAP queue 2 "
-            "item 2); use 'cholesky' or 'pallas'")
     R = R.contiguous()
     rhs = rhs.contiguous()
     if method == "pallas":
         return _refined_solve(R, R.to(torch.complex64).contiguous(), rhs,
                               "guard")
-    if method != "cholesky":
+    ok = None
+    if method == "block_inverse":
+        x = block_inverse_solve(R, rhs)
+        if rdtype != torch.float64:
+            ok = residual_ok(R, rhs, x)
+    elif method == "cholesky":
+        x = chol_solve(R, rhs, mode="nan")
+    else:
         raise ValueError(f"unknown solve_method {method!r}")
-    x = chol_solve(R, rhs, mode="nan")
-    if rdtype != torch.float64 and not bool(torch.isfinite(
-            torch.view_as_real(x)).all()):
-        x = _ridge_rerun(R, rhs)
+    if rdtype != torch.float64:
+        x = _finite_or_ridged(R, rhs, x, ok)
     return x
 
 

@@ -1,0 +1,79 @@
+"""Tests of the port that need the card, marked ``gpu``: they skip where
+there is no CUDA device.  This file imports neither JAX nor the JAX
+package, so on the card it runs alone:
+
+    python -m pytest --noconftest -q -p no:cacheprovider -m gpu \\
+        tests/test_torch_cuda.py tests/test_torch_chol.py
+"""
+import numpy as np
+import pytest
+import torch
+
+FS = 16000
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_lfilter_matches_plain_version(dtype):
+    """The kernel rounds every product and sum as its plain version does,
+    in the same order: equal bit for bit, also on the 30 Hz high-pass, in
+    both of the kernel's types."""
+    _needs_cuda()
+    from eaqhm_torch.ops import filters
+    rng = np.random.default_rng(11)
+    for fc, ftype in ((30, "highpass"), (1500, "lowpass")):
+        b, a, zi = filters.design_ellip(FS, fc, ftype)
+        x = torch.as_tensor(rng.normal(size=(3, 4001)), dtype=dtype,
+                            device="cuda")
+        n = filters.lfilter.launches
+        y, zf = filters.lfilter_with_state(b, a, x, zi=zi, dtype=dtype)
+        torch.cuda.synchronize()
+        assert filters.lfilter.launches == n + 1
+        z0 = torch.as_tensor(zi.copy(), dtype=dtype).expand(3, -1)
+        yr, zr = filters.lfilter_reference(b / a[0], a / a[0], x.cpu(),
+                                           z0.contiguous())
+        for got, want in ((y, yr), (zf, zr)):
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cuda_fused_loop_matches_host_loop(dtype):
+    """On the card the fused loop captures one eaQHM adaptation as a CUDA
+    graph and replays it: the same trajectory and reconstruction as the
+    host loop, on the golden SA19 resynthesis (female; it improves at
+    adaptation 1 and declines at 2, so the first call captures and replays
+    once and a warm call replays every eaQHM adaptation).  float64 to the
+    tolerances of tests/test_aux_subsystems.py:152-175; float32 to 1e-4 dB
+    and 1e-5, since its graph always computes the ridged rerun and selects
+    it on the device (the same function, to float32 rounding)."""
+    _needs_cuda()
+    import os
+    import eaqhm_torch
+    from eaqhm_torch.models import engine
+    from eaqhm_torch.ops import chol
+    s = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             "sa19_golden.npz"))["s_recon"]
+    kw = dict(gender="female", dtype=dtype)
+    engine.clear_graph_cache()
+    host = eaqhm_torch.analyze(s, FS, eaqhm_torch.EaqhmConfig(**kw))
+    cfg = eaqhm_torch.EaqhmConfig(fused_adapt_loop=True, **kw)
+    first = eaqhm_torch.analyze(s, FS, cfg)
+    chol.reset_counts()
+    warm = eaqhm_torch.analyze(s, FS, cfg)
+    n = len(host.srer)
+    assert n >= 3 and len(first.srer) == len(warm.srer) == n
+    assert first.fused["replays"] == n - 2
+    assert warm.fused["cached_graph"] and warm.fused["replays"] == n - 1
+    assert chol.chol_solve.replayed > 0       # the kernel ran in the graph
+    tol = (1e-9, 1e-12) if dtype == "float64" else (1e-4, 1e-5)
+    for res in (first, warm):
+        np.testing.assert_allclose(res.srer, host.srer, atol=tol[0])
+        np.testing.assert_allclose(res.s_recon, host.s_recon, atol=tol[1])
+    engine.clear_graph_cache()

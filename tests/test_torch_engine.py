@@ -92,3 +92,58 @@ def test_file_entry_point_matches_analyze(ref, tmp_path):
     assert srer == direct.srer and len(srer) == 1
     np.testing.assert_array_equal(s_recon, direct.s_recon)
     assert elapsed > 0 and res.tiers == direct.tiers
+
+
+def _option_case(ref, name):
+    p = f"engine_options/{name}/"
+    cfg = eaqhm_torch.config_from_dict(json.loads(str(ref[p + "config"])))
+    return p, ref[p + "signal"], cfg
+
+
+def test_block_inverse_analyze_matches_jax(ref):
+    """float64 analyze with solve_method="block_inverse" on the 1 s tone
+    against eaqhm_tpu's (recorded)."""
+    p, s, cfg = _option_case(ref, "block_inverse")
+    rt = eaqhm_torch.analyze(s, FS, cfg, device="cpu")
+    assert len(rt.srer) == len(ref[p + "srer"])
+    np.testing.assert_allclose(rt.srer, ref[p + "srer"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(rt.s_recon, ref[p + "s_recon"], rtol=0,
+                               atol=1e-8)
+
+
+def test_no_stop_on_decline_and_metrics_match_jax(ref):
+    """stop_on_decline=False (keep the best so far, keep going) and
+    collect_metrics (accepted harmonics per adaptation) against eaqhm_tpu's
+    recorded trajectory, on the tone's first 0.5 s."""
+    p, s, cfg = _option_case(ref, "no_stop_metrics")
+    assert not cfg.stop_on_decline and cfg.collect_metrics
+    rt = eaqhm_torch.analyze(s, FS, cfg, device="cpu")
+    srer = ref[p + "srer"]
+    assert len(rt.srer) == len(srer) == cfg.max_adaptations + 1
+    np.testing.assert_allclose(rt.srer, srer, rtol=0, atol=1e-6)
+    assert [m["accepted_harmonics"] for m in rt.metrics] == \
+        ref[p + "accepted_harmonics"].tolist()
+    np.testing.assert_allclose(rt.s_recon, ref[p + "s_recon"], rtol=0,
+                               atol=1e-8)
+
+
+def test_fused_loop_matches_host_loop():
+    """The fused loop (eager steps on the CPU, with the device-side
+    keep-best select) against the host loop on the four-harmonic tone of
+    tests/test_aux_subsystems.py:152-175, with that test's tolerances."""
+    t = np.arange(FS) / FS
+    s = sum(0.3 / k * np.sin(2 * np.pi * k * 210 * t) for k in range(1, 5))
+    kw = dict(gender=(150.0, 250.0), max_adaptations=3)
+    r_host = eaqhm_torch.analyze(s, FS, eaqhm_torch.EaqhmConfig(**kw),
+                                 device="cpu")
+    r_fused = eaqhm_torch.analyze(
+        s, FS, eaqhm_torch.EaqhmConfig(fused_adapt_loop=True, **kw),
+        device="cpu")
+    assert r_host.fused is None
+    assert r_fused.fused["eager"] == len(r_fused.srer)
+    assert r_fused.fused["replays"] == 0
+    assert len(r_host.srer) == len(r_fused.srer)
+    np.testing.assert_allclose(r_fused.srer, r_host.srer, atol=1e-9)
+    np.testing.assert_allclose(r_fused.s_recon, r_host.s_recon, atol=1e-12)
+    np.testing.assert_allclose(r_fused.det_ak, r_host.det_ak, atol=1e-12)
+    np.testing.assert_allclose(r_fused.det_pk, r_host.det_pk, atol=1e-10)

@@ -50,11 +50,19 @@ def test_config_from_dict_rejects_unknown_fields():
 
 
 def test_import_leaves_jax_out():
+    """Every module of the port imports without JAX, the JAX package or
+    matplotlib (the card has none; plots import it when called)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import eaqhm_torch, eaqhm_torch.models.engine, "
-            "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol; "
+            "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol, "
+            "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
+            "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "
+            "eaqhm_torch.parallel.corpus, eaqhm_torch.utils.checkpoint, "
+            "eaqhm_torch.utils.compat, eaqhm_torch.utils.plots, "
+            "eaqhm_torch.utils.progress; "
             "print(sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith(('jax.', 'eaqhm_tpu'))))")
+            "if m in ('jax', 'matplotlib') "
+            "or m.startswith(('jax.', 'eaqhm_tpu', 'matplotlib.'))))")
     out = subprocess.run([sys.executable, "-I", "-c", code, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -76,8 +84,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             assert not _IMPORT.search(f.read()), p
 
 
-def _tone(fs=16000):
-    t = np.arange(fs) / fs
+def _tone(n=16000, fs=16000):
+    t = np.arange(n) / fs
     return sum(0.3 / k * np.sin(2 * np.pi * k * 210 * t) for k in range(1, 5))
 
 
@@ -99,11 +107,23 @@ def test_default_device_raises_without_cuda(tmp_path):
     {"fused_adapt_loop": True},
     {"collect_metrics": True},
     {"stop_on_decline": False},
+    {"loading_screen": True},
 ])
-def test_unported_options_raise(kw):
-    cfg = eaqhm_torch.EaqhmConfig(gender=(150.0, 250.0), **kw)
-    with pytest.raises(NotImplementedError):
-        eaqhm_torch.analyze(_tone(), 16000, cfg, device="cpu")
+def test_every_option_runs_on_the_cpu(kw, capsys):
+    """Each option the first slices left out runs on the CPU: one
+    adaptation on 0.5 s with 8 partials, so the case stays cheap (its
+    parity is in tests/test_torch_engine.py and test_torch_solver.py)."""
+    cfg = eaqhm_torch.EaqhmConfig(gender=(150.0, 250.0), max_adaptations=1,
+                                  partials=8, **kw)
+    res = eaqhm_torch.analyze(_tone(8000), 16000, cfg, device="cpu")
+    assert 1 <= len(res.srer) <= 2 and np.all(np.isfinite(res.srer))
+    assert np.all(np.isfinite(res.s_recon))
+    assert (res.fused is not None) == bool(kw.get("fused_adapt_loop"))
+    assert all(("accepted_harmonics" in m) == bool(kw.get("collect_metrics"))
+               for m in res.metrics)
+    if kw.get("loading_screen"):
+        assert "adaptations" in capsys.readouterr().err + \
+            capsys.readouterr().out
 
 
 def test_dtype_auto_follows_the_device():

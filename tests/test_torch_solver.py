@@ -205,10 +205,60 @@ def test_solve_gram_float32_cholesky_ridge_matches_jax():
     assert np.abs(xt[ok] - x64).max() / np.abs(x64).max() < 1e-4
 
 
-def test_block_inverse_is_not_ported():
-    R, b = _hpd(7)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        ts.solve_gram(_t(R), _t(b), torch.float64, method="block_inverse")
+@pytest.mark.parametrize("rdtype", ["float64", "float32"])
+def test_auto_resolves_as_jax(rdtype):
+    """solve_method "auto": float64 -> "cholesky", float32 ->
+    "block_inverse", in both packages."""
+    assert ts.default_solve_method(getattr(torch, rdtype)) == \
+        js.default_solve_method(getattr(jnp, rdtype))
+
+
+# JAX's block inverse and solve on seeded HPD batches are recorded in
+# tests/golden/torch_parity_ref.npz (tools/make_torch_parity_ref.py
+# --cases block_inverse).  float64: the same arithmetic in another order
+# (1e-10 relative); float32: rounding of a recursion over cond(R) ~ 10
+# systems (1e-4 relative).
+_BI_TOL = {"float64": 1e-10, "float32": 1e-4}
+_BI_CASES = [(dt, m) for dt in ("float64", "float32") for m in (16, 37, 64)]
+
+
+@pytest.mark.parametrize("dtype,M", _BI_CASES)
+def test_block_inverse_matches_jax(dtype, M):
+    ref = np.load(REF)
+    p = f"block_inverse/{dtype}/4x{M}/"
+    R, b = _t(ref[p + "R"]), _t(ref[p + "b"])
+    _close(ts.gj_inverse(R), ref[p + "gj"], rtol=_BI_TOL[dtype])
+    _close(ts.hpd_block_inverse(R), ref[p + "inv"], rtol=_BI_TOL[dtype])
+    chol.reset_counts()
+    x = ts.solve_gram(R, b, getattr(torch, dtype), method="block_inverse")
+    _close(x, ref[p + "x"], rtol=_BI_TOL[dtype])
+    assert chol.chol_solve.plain_calls == 0        # healthy: no rerun
+
+
+@pytest.mark.parametrize("case", ["nonpd", "zero_pivot"])
+def test_block_inverse_float32_ridge_matches_jax(case):
+    """The non-PD float32 batch of the cholesky tests above (system 3 at
+    smallest eigenvalue -3e-6).  Its block inverse stays finite in both
+    packages, so JAX keeps it; system 3's refinement leaves a residual 1e2
+    times its right-hand side, so the port's residual gate reruns the batch
+    ridged (R + 1e-5 I is positive definite there).  With a zero pivot the
+    inverse is not finite and both packages rerun.  The rerun is one more
+    factorization and one substitution; the healthy systems agree with
+    JAX to float32 accuracy either way."""
+    ref = np.load(REF)
+    p = f"block_inverse/nonpd/{case}/"
+    R, b, xj = ref[p + "R"], ref[p + "b"], ref[p + "x"]
+    assert bool(ref[p + "inv_finite"]) == (case == "nonpd")
+    chol.reset_counts()
+    xt = ts.solve_gram(_t(R), _t(b), torch.float32,
+                       method="block_inverse").numpy()
+    assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 1
+    ok = [0, 1, 2, 4, 5, 6, 7]
+    np.testing.assert_allclose(xt[ok], xj[ok], rtol=1e-4, atol=2e-5)
+    np.testing.assert_array_equal(np.isfinite(xt), np.isfinite(xj))
+    R64 = R.astype(np.complex128)
+    x64 = np.linalg.solve(R64[ok], b[ok][..., None].astype(np.complex128))
+    assert np.abs(xt[ok] - x64[..., 0]).max() / np.abs(x64).max() < 1e-4
 
 
 def test_eaqhm_extract_matches_jax():

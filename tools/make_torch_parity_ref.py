@@ -11,7 +11,17 @@ Cases (inputs made here with numpy from a seed, stored in the file):
   equilibrated HPD complex64 systems;
 - pallas_f64/<B>x<M>: eaqhm_tpu.ops.solver.solve_gram(..., jnp.float64,
   method="pallas") on equilibrated HPD complex128 systems (complex64 Pallas
-  solves in interpret mode, refinement residual in complex128).
+  solves in interpret mode, refinement residual in complex128);
+- block_inverse/<dtype>/<B>x<M>: gj_inverse, hpd_block_inverse and
+  solve_gram(..., method="block_inverse") on equilibrated HPD systems, and
+  block_inverse/nonpd/<case>: float32 solve_gram(..., "block_inverse") on
+  the non-PD batch of tests/test_torch_solver.py (smallest eigenvalue -3e-6:
+  the inverse stays finite) and on the same batch with a zero pivot (the
+  inverse is not finite: the ridged rerun);
+- engine_options/<case>: eaqhm_tpu.analyze on the 1 s tone with
+  solve_method="block_inverse" (float64), and on its first 0.5 s with
+  stop_on_decline=False and collect_metrics=True (partials=12 keeps the
+  four adaptations cheap).
 
     JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py [--cases ...]
 
@@ -43,9 +53,10 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
 FS = 16000
 
 
-def tone():
-    """The 4-harmonic 210 Hz tone of tests/test_aux_subsystems.py:158-160."""
-    t = np.arange(FS) / FS
+def tone(n=FS):
+    """The 4-harmonic 210 Hz tone of tests/test_aux_subsystems.py:158-160
+    (n samples; 1 s there)."""
+    t = np.arange(n) / FS
     return sum(0.3 / k * np.sin(2 * np.pi * k * 210 * t) for k in range(1, 5))
 
 
@@ -67,7 +78,15 @@ ENGINE_CASES = {
 }
 CHOL_SHAPES = ((5, 50), (3, 32), (9, 37))
 PALLAS_F64_SHAPES = ((4, 37),)
-CASES = ("engine", "chol", "pallas_f64")
+BLOCK_INVERSE_SHAPES = ((4, 16), (4, 37), (4, 64))
+OPTION_CASES = {
+    "block_inverse": (FS, dict(gender=(150.0, 250.0), max_adaptations=3,
+                               solve_method="block_inverse")),
+    "no_stop_metrics": (FS // 2, dict(
+        gender=(150.0, 250.0), max_adaptations=3, partials=12,
+        stop_on_decline=False, collect_metrics=True)),
+}
+CASES = ("engine", "chol", "pallas_f64", "block_inverse", "engine_options")
 RESULT_FIELDS = ("srer", "s_recon", "det_ti", "det_is_speech",
                  "det_is_voiced", "det_a0", "det_ak", "det_frange", "det_pk",
                  "f0_grid")
@@ -154,6 +173,65 @@ def pallas_f64_cases(out):
         out[f"pallas_f64/{B}x{M}/x"] = x
 
 
+def nonpd_batch(zero_pivot=False):
+    """The float32 non-PD batch of tests/test_torch_solver.py (B = 8, Kc = 12,
+    seed 6): system 3 shifted to smallest eigenvalue -3e-6; with
+    zero_pivot, its first diagonal entry set to 0 as well."""
+    B, M = 8, 2 * (2 * 12 + 1)
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
+    R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
+    d = np.sqrt(np.real(np.einsum("bii->bi", R)))
+    R = R / (d[:, :, None] * d[:, None, :])
+    b = rng.normal(size=(B, M)) + 1j * rng.normal(size=(B, M))
+    lam = np.linalg.eigvalsh(R[3]).min()
+    R[3] = R[3] - (lam + 3e-6) * np.eye(M)
+    if zero_pivot:
+        R[3, 0, 0] = 0.0
+    return R.astype(np.complex64), b.astype(np.complex64)
+
+
+def block_inverse_cases(out):
+    for name, cdt, rdt in (("float64", np.complex128, jnp.float64),
+                           ("float32", np.complex64, jnp.float32)):
+        for B, M in BLOCK_INVERSE_SHAPES:
+            R, b = hpd_systems(B, M, seed=M, dtype=cdt)
+            p = f"block_inverse/{name}/{B}x{M}/"
+            out[p + "R"] = R
+            out[p + "b"] = b
+            out[p + "gj"] = np.asarray(solver.gj_inverse(jnp.asarray(R)))
+            out[p + "inv"] = np.asarray(
+                solver.hpd_block_inverse(jnp.asarray(R)))
+            out[p + "x"] = np.asarray(solver.solve_gram(
+                jnp.asarray(R), jnp.asarray(b), rdt, method="block_inverse"))
+    for case, zp in (("nonpd", False), ("zero_pivot", True)):
+        R, b = nonpd_batch(zp)
+        p = f"block_inverse/nonpd/{case}/"
+        out[p + "R"] = R
+        out[p + "b"] = b
+        out[p + "inv_finite"] = np.isfinite(np.asarray(
+            solver.hpd_block_inverse(jnp.asarray(R)))).all()
+        out[p + "x"] = np.asarray(solver.solve_gram(
+            jnp.asarray(R), jnp.asarray(b), jnp.float32,
+            method="block_inverse"))
+
+
+def engine_option_cases(out):
+    for name, (n, kw) in OPTION_CASES.items():
+        s = tone(n)
+        cfg = EaqhmConfig(**kw)
+        res = engine.analyze(s, FS, cfg)
+        p = f"engine_options/{name}/"
+        out[p + "signal"] = s
+        out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
+        for f in ("srer", "s_recon"):
+            out[p + f] = np.asarray(getattr(res, f))
+        if cfg.collect_metrics:
+            out[p + "accepted_harmonics"] = np.asarray(
+                [m["accepted_harmonics"] for m in res.metrics])
+        print(name, "srer", res.srer)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
@@ -165,7 +243,9 @@ def main():
                    if k.split("/")[0] not in args.cases}
     for case in args.cases:
         {"engine": engine_cases, "chol": chol_cases,
-         "pallas_f64": pallas_f64_cases}[case](out)
+         "pallas_f64": pallas_f64_cases,
+         "block_inverse": block_inverse_cases,
+         "engine_options": engine_option_cases}[case](out)
     np.savez_compressed(OUT, **out)
     print("wrote", OUT, os.path.getsize(OUT) // 1024, "KB")
 
