@@ -5,12 +5,12 @@
 
 1. Setup: the card's name and power limit, torch/CUDA versions, the build of
    every CUDA kernel from the sources in this checkout (one nvcc per source,
-   started together); TF32 must be off.
+   each from a thread of its own, started together); TF32 must be off.
 2. Kernel phase: each hand kernel against its plain PyTorch version on the
-   card (random equilibrated HPD systems from a numpy seed), in both pivot
-   rules ("guard", "nan"), on both paths (resident, global), for the fused
-   solve and the kept factor's substitution, with the tolerance asserted and
-   the path and times printed.
+   card (random equilibrated HPD systems drawn on the card from a seed), in
+   both pivot rules ("guard", "nan"), on both paths (resident, global), for
+   the fused solve and the kept factor's substitution, with the tolerance
+   asserted and the path and times printed.
    Non-PD phase: the "nan" rule returns NaN on exactly the systems whose
    cuSOLVER factorization fails, and solve_gram(float32, "cholesky") on the
    card takes the ridged rerun as the same call on the CPU does.
@@ -33,7 +33,20 @@
    those launches' shapes in the kernels line.
 7. The CLI as a subprocess on a wav of the resynthesis (--json): its final
    SRER equals the API's on the same file.
-8. One JSON line of the kernels (each kernel at every launch the paths
+8. Corpus paths, on the JAX benchmark's corpus inputs (16 two-second
+   utterances, parallel.corpus.corpus_signals on the resynthesis; female,
+   max_adaptations=6): streams (the sequential float64 run, then
+   run_streams with 1 and 4 workers on the card, a 64-sample signal
+   failing alone, and the fused loop over 4 workers with utterances listed
+   twice: every final SRER within 1e-9 dB of the sequential run); batch
+   (analyze_batch on utterances 0-7, float64 held to the JAX package's
+   analyze_batch, fixture group batch/*, float32 under the gate, audio-s/s
+   against the sequential engine) and the kernel at the batch's tiers;
+   mesh (a world-size-1 NCCL group from torchrun's environment, make_mesh,
+   analyze_batch equal to mesh=None, run_corpus_sharded with resume);
+   determinism (``chip_smoke.py --determinism`` as a subprocess: two runs
+   under determinism.apply() bitwise equal).
+9. One JSON line of the kernels (each kernel at every launch the paths
    made, launches counted per entry point and per path, counts set to 0
    just before each path and read just after), the nvidia-smi line, and as
    the last line {"ok": true, "device": {...}}.
@@ -47,6 +60,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -65,6 +79,11 @@ RIDGED_TOL = 1e-2
 SRER_TOL_DB = 1e-6
 WAVE_TOL = 1e-8
 F32_GATE_DB = 0.1
+STREAM_TOL_DB = 1e-9        # tests/test_streams.py:40-43
+MESH_SRER_TOL_DB = 1e-8     # tests/test_batch_engine.py:55-58
+MESH_WAVE_TOL = 1e-9
+CORPUS_N = 16               # utterances of the corpus phases
+BATCH_N = 8                 # utterances of the batch phases
 
 
 def log(*a):
@@ -87,16 +106,18 @@ def cuda_ms(fn, reps):
 
 
 def hpd_batch(B, M, seed, dtype, device):
-    """Random equilibrated HPD systems, as tests/test_ops.py builds them."""
+    """Random equilibrated HPD systems, as tests/test_ops.py builds them (A
+    A^H / M + I, scaled to a unit diagonal), drawn on ``device`` from a
+    seeded generator and built in complex128 there."""
     import torch
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
-    R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
-    d = np.sqrt(np.real(np.einsum("bii->bi", R)))
-    R = R / (d[:, :, None] * d[:, None, :])
-    b = rng.normal(size=(B, M)) + 1j * rng.normal(size=(B, M))
-    return (torch.as_tensor(R, dtype=dtype, device=device),
-            torch.as_tensor(b, dtype=dtype, device=device))
+    g = torch.Generator(device=device).manual_seed(seed)
+    c128 = torch.complex128
+    A = torch.randn((B, M, M), dtype=c128, generator=g, device=device)
+    b = torch.randn((B, M), dtype=c128, generator=g, device=device)
+    R = A @ A.mH / M + torch.eye(M, dtype=c128, device=device)
+    d = torch.diagonal(R, dim1=-2, dim2=-1).real.sqrt()
+    R = R / (d[:, :, None] * d[:, None, :]).to(c128)
+    return R.to(dtype).contiguous(), b.to(dtype).contiguous()
 
 
 def tri(M):
@@ -133,17 +154,20 @@ def bound_ms(nbytes, flops, cname):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, chol):
-    """Each (dtype, M) cell, both pivot rules: the fused solve and the kept
-    factor's substitution against the plain versions on the card; times of
-    the fused solve ("nan" rule, no factor kept) and of the cuSOLVER
-    route."""
+KERNEL_CELLS = ((9, 37), (512, 98), (512, 130), (512, 162), (512, 194),
+                (512, 258))
+
+
+def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel"):
+    """Each (dtype, B, M) cell, both pivot rules: the fused solve and the
+    kept factor's substitution against the plain versions on the card;
+    times of the fused solve ("nan" rule, no factor kept) and of the
+    cuSOLVER route."""
     worst = {}
     for dt in (torch.complex64, torch.complex128):
         cname = str(dt).split(".")[-1]
         tol = KERNEL_TOL[cname]
-        for B, M in ((9, 37), (512, 98), (512, 130), (512, 162), (512, 194),
-                     (512, 258)):
+        for B, M in cells:
             R, b = hpd_batch(B, M, seed=M, dtype=dt, device="cuda")
             path = chol.path_for(dt, M)
             errs = {}
@@ -162,7 +186,7 @@ def kernel_phase(torch, chol):
             lib_ms = cuda_ms(lambda: chol.chol_solve_reference(R, b), 5)
             bnd, by = bound_ms(*factor_cost(B, M, R.element_size(), False),
                                cname)
-            log(f"kernel chol_solve {cname} B={B} M={M} path={path}: "
+            log(f"{what} chol_solve {cname} B={B} M={M} path={path}: "
                 f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bnd:.4f} ({by}) max_rel_err (solve, subst) "
                 f"guard={errs['guard'][0]:.3e},{errs['guard'][1]:.3e} "
@@ -255,9 +279,21 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
         assert rel <= KERNEL_TOL[cname], (cname, what, rel)
         err = max(err, (x - xr).abs().max().item())
 
-    for i, ((B, M, path, mode, keep), n) in enumerate(
-            sorted(Counter(fused).items())):
-        R, b = hpd_batch(B, M, seed=1000 + i, dtype=dt, device="cuda")
+    pools = {}
+
+    def systems(B, M, seed, shapes):
+        """The first B systems of one seeded batch per (M, seed), drawn at
+        the largest B launched at that M: the paths launch hundreds of
+        distinct (B, M) shapes."""
+        if (M, seed) not in pools:
+            pools[(M, seed)] = hpd_batch(
+                max(x[0] for x in shapes if x[1] == M), M, seed=seed + M,
+                dtype=dt, device="cuda")
+        R, b = pools[(M, seed)]
+        return R[:B].contiguous(), b[:B].contiguous()
+
+    for (B, M, path, mode, keep), n in sorted(Counter(fused).items()):
+        R, b = systems(B, M, 1000, fused)
         x = chol.chol_solve(R, b, mode=mode, keep_factor=keep)
         x = x[0] if keep else x
         check(f"chol_solve {cname} B={B} M={M} {path} {mode} keep={keep}",
@@ -271,8 +307,8 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
         cb, cf = factor_cost(B, M, R.element_size(), keep)
         nbytes += n * cb
         flops += n * cf
-    for i, ((B, M, path), n) in enumerate(sorted(Counter(subst).items())):
-        R, b = hpd_batch(B, M, seed=2000 + i, dtype=dt, device="cuda")
+    for (B, M, path), n in sorted(Counter(subst).items()):
+        R, b = systems(B, M, 2000, subst)
         _, f = chol.chol_solve(R, b, mode="guard", keep_factor=True)
         L = chol.unpack_factor(f)
         check(f"chol_subst {cname} B={B} M={M} {path}",
@@ -467,6 +503,260 @@ def cli_phase(torch, eaqhm_torch, io, sig):
     assert out.shape == api.s_recon.shape
 
 
+def corpus_config(eaqhm_torch, **kw):
+    """The corpus configurations of the JAX benchmark (configs 3, 5, 6):
+    female preset, max_adaptations=6."""
+    return eaqhm_torch.EaqhmConfig(gender="female", max_adaptations=6, **kw)
+
+
+def chol_shapes(chol):
+    return list(chol.chol_solve.shapes), list(chol.chol_subst.shapes)
+
+
+def check_streams(out, seq, idx, what):
+    """Every utterance of the run: the sequential run's adaptation count and
+    final SRER within STREAM_TOL_DB (tests/test_streams.py:40-43)."""
+    worst = 0.0
+    for k, i in enumerate(idx):
+        got, ref = out.done[k], seq[i]
+        assert got["n_adaptations"] == len(ref.srer), (what, k, got)
+        worst = max(worst, abs(got["final_srer_db"] - max(ref.srer)))
+    log(f"{what}: {len(idx)} utterances, max|dfinal SRER| vs sequential "
+        f"{worst:.3e} dB (asserted <= {STREAM_TOL_DB:g})")
+    assert worst <= STREAM_TOL_DB, (what, worst)
+
+
+def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
+    """The corpus sequentially (a warm-up pass, then a timed one: the
+    float64 reference), then through run_streams with one worker and with
+    four workers on the card (a 64-sample signal added, which must fail
+    alone; kernel launches counted over this run), then the fused loop over
+    four workers with two utterances listed twice, so that two workers
+    capture and then replay one geometry at once.  Returns (sequential
+    results, their seconds, launch shapes of the four-worker run)."""
+    cfg = corpus_config(eaqhm_torch, dtype="float64")
+    audio = sum(len(s) for s in corpus) / FS
+    for s in corpus:
+        eaqhm_torch.analyze(s, FS, cfg, device="cuda")
+    seq, seq_s = [], []
+    for s in corpus:
+        t0 = time.time()
+        seq.append(eaqhm_torch.analyze(s, FS, cfg, device="cuda"))
+        seq_s.append(time.time() - t0)
+    rates = {"sequential": audio / sum(seq_s)}
+    idx = list(range(len(corpus)))
+    one = streams.run_streams(corpus, FS, cfg, devices=["cuda:0"])
+    check_streams(one, seq, idx, "streams 1 worker")
+    rates["1 worker"] = one.audio_seconds_per_second
+    chol.reset_counts()
+    four = streams.run_streams(corpus + [np.zeros(64)], FS, cfg,
+                               devices=["cuda:0"] * 4)
+    torch.cuda.synchronize()
+    shapes = chol_shapes(chol)
+    assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
+    assert set(four.failed) == {len(corpus)}, four.failed
+    check_streams(four, seq, idx, "streams 4 workers")
+    rates["4 workers"] = four.audio_seconds_per_second
+    fidx = [0, 0, 2, 2, 1, 3]
+    fcfg = corpus_config(eaqhm_torch, dtype="float64", fused_adapt_loop=True)
+    for rep in range(2):
+        chol.reset_counts()
+        fused = streams.run_streams([corpus[i] for i in fidx], FS, fcfg,
+                                    devices=["cuda:0"] * 4)
+        assert not fused.failed, fused.failed
+        check_streams(fused, seq, fidx, f"fused streams 4 workers, run "
+                      f"{rep + 1} (utterances {fidx})")
+        log(f"fused streams run {rep + 1}: {chol.chol_solve.replayed} "
+            f"factor + solve launches inside graph replays, "
+            f"{chol.chol_solve.launches - chol.chol_solve.replayed} eager; "
+            f"per worker {fused.per_device}")
+        assert chol.chol_solve.replayed > 0
+    log(f"streams: audio-s/s over {len(corpus)} utterances ({audio:.1f} s "
+        f"of audio, float64, female, max_adaptations=6): "
+        f"{ {k: round(v, 3) for k, v in rates.items()} }; per worker "
+        f"(1 worker) {one.per_device}, (4 workers) {four.per_device}; "
+        f"elapsed 1 worker {one.elapsed:.3f} s, 4 workers "
+        f"{four.elapsed:.3f} s, sequential {sum(seq_s):.3f} s")
+    return seq, seq_s, shapes
+
+
+def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
+                seq_s):
+    """analyze_batch (mesh=None) on utterances 0-7: float64 held to the JAX
+    package's analyze_batch on the same input (the fixture's batch group);
+    srer_mean against mean(final_srer); each utterance's gap to its
+    per-utterance analyze, printed (not gated: the batch's common length,
+    pitch-floor bounds and lockstep loop may move it; the fixture is the
+    parity check); float32 (default solve) under the -0.1 dB gate against
+    the float64 final SRERs; audio-s/s of a warm call against the
+    sequential engine on the same utterances."""
+    sigs = corpus[:BATCH_N]
+    cfg64 = corpus_config(eaqhm_torch, dtype="float64")
+    chol.reset_counts()
+    t0 = time.time()
+    out = batch_engine.analyze_batch(sigs, FS, cfg64, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    sh64 = chol_shapes(chol)
+    assert chol.chol_solve.plain_calls == 0
+    t0 = time.time()
+    warm = batch_engine.analyze_batch(sigs, FS, cfg64, device="cuda")
+    warm_s = time.time() - t0
+    n_ref = int(ref["batch/n_adaptations"])
+    assert out.n_adaptations == n_ref, (out.n_adaptations, n_ref)
+    d_srer = float(np.max(np.abs(out.srer - ref["batch/srer"])))
+    d_wave = float(np.max(np.abs(out.s_recon - ref["batch/s_recon"])))
+    log(f"batch float64 vs JAX fixture: adaptations {out.n_adaptations} vs "
+        f"{n_ref}, max|dSRER|={d_srer:.3e} dB (<= {SRER_TOL_DB}), "
+        f"max|ds_recon|={d_wave:.3e} (<= {WAVE_TOL}); final SRER "
+        f"{np.round(out.final_srer, 6).tolist()}; warm call bit-identical "
+        f"{bool(np.array_equal(warm.srer, out.srer))}")
+    assert d_srer <= SRER_TOL_DB and d_wave <= WAVE_TOL
+    d_mean = abs(out.srer_mean - float(np.mean(out.final_srer)))
+    assert d_mean <= 1e-9, d_mean
+    gaps = [float(out.final_srer[i] - max(seq[i].srer))
+            for i in range(BATCH_N)]
+    log(f"batch vs per-utterance analyze, final SRER gap per utterance "
+        f"(batch - analyze, dB, not gated): {np.round(gaps, 4).tolist()}")
+    cfg32 = corpus_config(eaqhm_torch, dtype="float32")
+    chol.reset_counts()
+    out32 = batch_engine.analyze_batch(sigs, FS, cfg32, device="cuda")
+    torch.cuda.synchronize()
+    sh32 = chol_shapes(chol)
+    d32 = out32.final_srer - out.final_srer
+    log(f"batch float32 (default solve): final SRER "
+        f"{np.round(out32.final_srer, 6).tolist()}, minus float64 "
+        f"{np.round(d32, 6).tolist()} (gate >= -{F32_GATE_DB} dB), "
+        f"adaptations {out32.n_adaptations}")
+    assert np.all(np.isfinite(out32.srer)) and np.all(d32 >= -F32_GATE_DB)
+    audio = sum(len(s) for s in sigs) / FS
+    log(f"batch: first call {first_s:.3f} s, warm call {warm_s:.3f} s = "
+        f"{audio / warm_s:.3f} audio-s/s against the sequential engine's "
+        f"{audio / sum(seq_s[:BATCH_N]):.3f} audio-s/s on the same "
+        f"{BATCH_N} utterances ({sum(seq_s[:BATCH_N]):.3f} s); launches "
+        f"float64 {len(sh64[0])} (B, M) "
+        f"{dict(Counter(x[:2] for x in sh64[0]))}, float32 factor + solve "
+        f"{len(sh32[0])}, substitutions {len(sh32[1])}")
+    return out, sh64, sh32
+
+
+def mesh_phase(torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod,
+               io, corpus, out_none):
+    """A world-size-1 NCCL group from torchrun's environment
+    (multihost_init) and make_mesh(1): analyze_batch over the mesh equals
+    mesh=None within 1e-8 dB and 1e-9 of the waveform
+    (tests/test_batch_engine.py:49-60); run_corpus_sharded over the 16
+    utterances as wavs with a checkpoint: all done, none failed, and a
+    second run skips them all.  Returns the launch shapes of the mesh
+    call."""
+    import datetime
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    os.environ.update(env)
+    try:
+        assert mesh_mod.multihost_init(
+            timeout=datetime.timedelta(seconds=120)) is True
+        assert dist.get_backend() == "nccl"
+        mesh = mesh_mod.make_mesh(1)
+        cfg64 = corpus_config(eaqhm_torch, dtype="float64")
+        chol.reset_counts()
+        out = batch_engine.analyze_batch(corpus[:BATCH_N], FS, cfg64,
+                                         mesh=mesh, device="cuda")
+        torch.cuda.synchronize()
+        shapes = chol_shapes(chol)
+        d_srer = float(np.max(np.abs(out.srer - out_none.srer)))
+        d_wave = float(np.max(np.abs(out.s_recon - out_none.s_recon)))
+        log(f"mesh {tuple(mesh.shape)} (NCCL, world 1) vs mesh=None: "
+            f"max|dSRER|={d_srer:.3e} dB (<= {MESH_SRER_TOL_DB}), "
+            f"max|ds_recon|={d_wave:.3e} (<= {MESH_WAVE_TOL})")
+        assert out.n_adaptations == out_none.n_adaptations
+        assert d_srer <= MESH_SRER_TOL_DB and d_wave <= MESH_WAVE_TOL
+        scratch = os.path.join(ROOT, "eaqhm_torch", "kernels", "build")
+        os.makedirs(scratch, exist_ok=True)        # listed in .gitignore
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            paths = []
+            for i, s in enumerate(corpus):
+                paths.append(os.path.join(d, f"utt{i:03d}.wav"))
+                io.write_wav(paths[-1], FS, s)
+            ckpt = os.path.join(d, "ckpt")
+            t0 = time.time()
+            r1 = corpus_mod.run_corpus_sharded(paths, cfg64, mesh=mesh,
+                                               checkpoint_dir=ckpt,
+                                               device="cuda")
+            t1 = time.time() - t0
+            r2 = corpus_mod.run_corpus_sharded(paths, cfg64, mesh=mesh,
+                                               checkpoint_dir=ckpt,
+                                               device="cuda")
+        log(f"run_corpus_sharded (mesh of one rank: run_corpus): "
+            f"{len(r1.done)} done, {len(r1.failed)} failed in {t1:.3f} s "
+            f"({r1.audio_seconds_per_second:.3f} audio-s/s); resumed run "
+            f"skipped {len(r2.skipped)}, analyzed {len(r2.done)}")
+        assert len(r1.done) == len(corpus) and not r1.failed
+        assert sorted(r2.skipped) == sorted(r1.done) and not r2.done
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    return shapes
+
+
+def determinism_child():
+    """``python3 chip_smoke.py --determinism``: determinism.apply() before
+    any CUDA matmul, then analyze_batch twice on utterances 0-7 (float64);
+    prints one JSON line."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from eaqhm_torch.parallel import determinism
+    applied = determinism.apply()
+    import eaqhm_torch
+    from eaqhm_torch.parallel import batch_engine
+    from eaqhm_torch.parallel.corpus import corpus_signals
+    sig = np.load(os.path.join(GOLDEN, "sa19_golden.npz"))["s_recon"]
+    sigs = corpus_signals(sig, BATCH_N, FS)
+    cfg = corpus_config(eaqhm_torch, dtype="float64")
+    runs, secs = [], []
+    for _ in range(2):
+        t0 = time.time()
+        runs.append(batch_engine.analyze_batch(sigs, FS, cfg, device="cuda"))
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    print(json.dumps({
+        "applied": applied, "seconds": secs,
+        "srer_bitwise": bool(np.array_equal(runs[0].srer, runs[1].srer)),
+        "s_recon_bitwise": bool(np.array_equal(runs[0].s_recon,
+                                               runs[1].s_recon)),
+        "final_srer": runs[0].final_srer.tolist(),
+        "n_adaptations": runs[0].n_adaptations}), flush=True)
+
+
+def determinism_phase(out64):
+    """The determinism child as a subprocess (apply() is process-wide and
+    CUBLAS_WORKSPACE_CONFIG must precede the first cuBLAS handle): its two
+    runs' SRER arrays must be bitwise equal."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--determinism"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = float(np.max(np.abs(np.asarray(rep["final_srer"])
+                            - out64.final_srer)))
+    log(f"determinism: subprocess {time.time() - t0:.2f} s, applied "
+        f"{rep['applied']}, analyze_batch x2 {np.round(rep['seconds'], 3)}"
+        f" s, SRER bitwise equal {rep['srer_bitwise']}, s_recon bitwise "
+        f"equal {rep['s_recon_bitwise']}, adaptations "
+        f"{rep['n_adaptations']}, max|dfinal SRER| vs the default mode "
+        f"{d:.3e} dB")
+    assert rep["srer_bitwise"], rep
+
+
 def lfilter_line_entry(torch, filters, shapes):
     """The lfilter kernel at every launch the VAD path made, on seeded
     inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
@@ -515,6 +805,10 @@ def main():
     from eaqhm_torch.kernels import build
     from eaqhm_torch.models import vad
     from eaqhm_torch.ops import chol, filters, solver
+    from eaqhm_torch.parallel import batch_engine, streams
+    from eaqhm_torch.parallel import corpus as corpus_mod
+    from eaqhm_torch.parallel import mesh as mesh_mod
+    from eaqhm_torch.parallel.corpus import corpus_signals
     from eaqhm_torch.utils import io
 
     smi = subprocess.run(
@@ -528,10 +822,11 @@ def main():
     assert torch.get_float32_matmul_precision() == "highest"
 
     t0 = time.time()
-    build.load_all()
+    with ThreadPoolExecutor(len(build.KERNELS)) as ex:
+        list(ex.map(build.load, build.KERNELS))
     build_s = time.time() - t0
     log(f"kernel build: {build_s:.2f} s ({list(build.KERNELS)}, one nvcc "
-        f"per source, started together)")
+        f"per source, started together from one thread each)")
 
     worst = kernel_phase(torch, chol)
     log(f"kernel phase max relative error: {worst}")
@@ -584,6 +879,21 @@ def main():
     lf_shapes = dsp_phase(torch, filters, vad, sig)
     cli_phase(torch, eaqhm_torch, io, sig)
 
+    corpus = corpus_signals(sig, CORPUS_N, FS)
+    seq, seq_s, shapes["complex128"]["float64_streams"] = streams_phase(
+        torch, chol, eaqhm_torch, streams, corpus)
+    out64, shapes["complex128"]["float64_batch"], \
+        shapes["complex64"]["float32_batch"] = batch_phase(
+            torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq, seq_s)
+    batch_ms = sorted({x[1] for x in shapes["complex128"]["float64_batch"][0]})
+    kernel_phase(torch, chol, cells=[
+        (max(x[0] for x in shapes["complex128"]["float64_batch"][0]
+             if x[1] == M), M) for M in batch_ms], what="batch-M kernel")
+    shapes["complex128"]["float64_mesh"] = mesh_phase(
+        torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod, io,
+        corpus, out64)
+    determinism_phase(out64)
+
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
                       ("complex64", torch.complex64)):
@@ -602,4 +912,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--determinism"]:
+        determinism_child()
+    else:
+        main()

@@ -4,8 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface under ``build/`` (listed in .gitignore) and loaded
 with ``ctypes``.  The library name carries a hash of the source and flags, so
 an edited source is rebuilt at first use and an unchanged one is reused.
-Nothing is built or loaded when this module is imported; ``load_all`` builds
-every kernel at once, one nvcc per source, all started together.
+Nothing is built or loaded when this module is imported; ``load`` builds a
+library at its first use, under a lock of its own.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -40,6 +41,8 @@ KERNELS = {
 }
 
 _loaded = {}
+_locks = {}                    # (name, defines) -> lock of its build
+_locks_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -59,52 +62,41 @@ def _lib_path(name: str, flags: tuple) -> str:
     return os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def _start(name: str, flags: tuple):
-    """Start nvcc for one library unless it is built: (out, None) or
-    (out, (process, temporary output))."""
+def _build(name: str, flags: tuple) -> str:
+    """Run nvcc for one library unless it is built; returns its path."""
     out = _lib_path(name, flags)
     if os.path.exists(out):
-        return out, None
+        return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp,
            os.path.join(CSRC, KERNELS[name][0])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return out, (proc, tmp)
-
-
-def _finish(name: str, out: str, job) -> str:
-    if job is None:
-        return out
-    proc, tmp = job
-    _, err = proc.communicate()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
     os.replace(tmp, out)       # atomic: a concurrent build sees all or none
     with open(out + ".ptxas.txt", "w") as f:
-        f.write(err)
+        f.write(proc.stderr)
     return out
 
 
 def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library for one kernel, built first if needed.  defines
     (e.g. ("CHOL_PHASE_CLOCKS",)) build a separate variant for a tool; the
-    port itself loads the plain build."""
+    port itself loads the plain build.  Safe from several threads: each
+    library has a lock, so one thread builds it while the others wait, and
+    two libraries build at once from two threads."""
     key = (name, tuple(defines))
-    if key not in _loaded:
-        flags = tuple(NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
-        _bind(key, _finish(name, *_start(name, flags)))
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    with _locks_guard:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _loaded:
+            flags = tuple(NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
+            _bind(key, _build(name, flags))
     return _loaded[key]
-
-
-def load_all() -> None:
-    """Build every kernel of ``KERNELS`` (plain build), one nvcc per
-    source started together, and load them."""
-    jobs = {name: _start(name, tuple(NVCC_FLAGS)) for name in KERNELS
-            if (name, ()) not in _loaded}
-    for name, (out, job) in jobs.items():
-        _bind((name, ()), _finish(name, out, job))
 
 
 def _bind(key, path: str) -> None:

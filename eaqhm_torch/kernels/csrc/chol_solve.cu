@@ -69,6 +69,8 @@
 
 #include <math.h>
 
+#include <atomic>
+
 #ifdef CHOL_PHASE_CLOCKS
 // Profiling build only (tools/bench_chol_phases.py): thread 0 of each block
 // adds the cycles of each phase of its block's timeline, barrier waits
@@ -613,12 +615,21 @@ int prepare(K kernel) {
 }
 
 // Opt every kernel of this file in to the largest dynamic shared memory,
-// once per process (the first launch, or chol_prepare ahead of a CUDA
-// graph capture): the launches themselves then make no other CUDA call,
-// so they are captured as they are.
+// once per device (cudaFuncSetAttribute applies to the current device
+// only): at the first launch on a device, or in chol_prepare ahead of a
+// CUDA graph capture.  A launch after that makes no CUDA call besides
+// cudaGetDevice and the launch itself, so it is captured as it is.  The
+// per-device flags are atomics: threads driving other devices, or the same
+// one, may prepare at once (setting an attribute twice is harmless).
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_prepared[kMaxDevices];
+
 int prepare_all() {
-  static int state = -1;
-  if (state == 0) return 0;
+  int dev = 0;
+  const cudaError_t g = cudaGetDevice(&dev);
+  if (g != cudaSuccess) return (int)g;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (g_prepared[dev].load(std::memory_order_acquire)) return 0;
   int e = prepare(chol_factor_solve_kernel<float, true>);
   if (!e) e = prepare(chol_factor_solve_kernel<float, false>);
   if (!e) e = prepare(chol_factor_solve_kernel<double, true>);
@@ -627,7 +638,7 @@ int prepare_all() {
   if (!e) e = prepare(chol_subst_kernel<float, false>);
   if (!e) e = prepare(chol_subst_kernel<double, true>);
   if (!e) e = prepare(chol_subst_kernel<double, false>);
-  state = e;
+  if (!e) g_prepared[dev].store(1, std::memory_order_release);
   return e;
 }
 
@@ -686,8 +697,9 @@ int launch_subst(const void* L, const void* d, const void* rhs, void* x, int B,
 
 extern "C" {
 
-// Set the kernels' shared-memory attributes now (launches do it at first
-// use otherwise).  Returns the cudaError_t (0 on success).
+// Set the kernels' shared-memory attributes on the current device now
+// (launches do it at first use otherwise).  Returns the cudaError_t (0 on
+// success).
 int chol_prepare() { return prepare_all(); }
 
 // Profiling build: copies the phase clocks (see CHOL_PHASE_CLOCKS) to

@@ -13,6 +13,7 @@ once as a CUDA graph and replayed (``_FusedLoop``).
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -246,27 +247,75 @@ def _loud_enough(pos):
     return logamp > logamp.amax(dim=1, keepdim=True) - 150.0
 
 
-def iqhm_accept(amps, f0, Kc: int):
+def _mask_voiced(a0_val, acc, voiced):
+    """a0 and acceptance off the non-analyzed rows.  A select, not JAX's
+    product with the mask: such a row's solve may be NaN (a one-sample
+    window is singular), and XLA turns JAX's product into this select too,
+    so both packages give 0 there."""
+    return (torch.where(voiced, a0_val, torch.zeros_like(a0_val)),
+            voiced[:, None] & acc)
+
+
+def iqhm_accept(amps, f0, Kc: int, voiced=None):
     """Adaptation-0 acceptance + parameter extraction (functions.py:303-324,
-    a == 0 branch: fm = k*f0).  amps: [B, 2Kc+1] complex; f0: [B].
-    Returns (a0_val, am, fm, ph, acc)."""
+    a == 0 branch: fm = k*f0).  amps: [B, 2Kc+1] complex; f0: [B]; voiced:
+    [B] analyzed-frame mask, or None when every row is analyzed.  Returns
+    (a0_val, am, fm, ph, acc).  Shared by the per-utterance and batched
+    engines, as JAX's (eaqhm_tpu/models/engine.py:118-129)."""
     pos = amps[:, Kc + 1:]
     k1 = torch.arange(1, Kc + 1, device=amps.device)[None, :].to(f0.dtype)
-    return (amps[:, Kc].real, pos.abs(), k1 * f0[:, None], pos.angle(),
-            _loud_enough(pos))
+    a0_val = amps[:, Kc].real
+    acc = _loud_enough(pos)
+    if voiced is not None:
+        a0_val, acc = _mask_voiced(a0_val, acc, voiced)
+    return a0_val, pos.abs(), k1 * f0[:, None], pos.angle(), acc
 
 
-def eaqhm_accept(amps, fmis, fmc, dead, h, do_update: bool, Kc: int):
+def eaqhm_accept(amps, fmis, fmc, dead, h, do_update, Kc: int,
+                 voiced=None):
     """Adaptation >=1 acceptance + fm update (functions.py:303-324, a > 0:
     150 dB gate AND |fmismatch| < h; fm <- fm + fmismatch when the stale-f0
     test allows, with the dead-track bootstrap's 140 Hz on harmonic 1).
-    Returns (a0_val, am, fm, ph, acc)."""
+    h: 0-d or per-row [B] tensor; do_update: a bool or a per-row [B] bool
+    tensor; voiced: [B] analyzed-frame mask, or None when every row is
+    analyzed.  Returns (a0_val, am, fm, ph, acc).  Shared by both engines,
+    as JAX's (eaqhm_tpu/models/engine.py:132-146)."""
     pos = amps[:, Kc + 1:]
-    acc = _loud_enough(pos) & (fmis.abs() < h)
+    hb = h[:, None] if h.dim() else h
+    acc = _loud_enough(pos) & (fmis.abs() < hb)
+    a0_val = amps[:, Kc].real
+    if voiced is not None:
+        a0_val, acc = _mask_voiced(a0_val, acc, voiced)
     first = torch.arange(Kc, device=amps.device)[None, :] == 0
     fmc_eff = torch.where(dead[:, None] & first, DEAD_TRACK_F0, fmc)
-    fm = fmc_eff + fmis if do_update else fmc_eff
-    return amps[:, Kc].real, pos.abs(), fm, pos.angle(), acc
+    if isinstance(do_update, torch.Tensor):
+        fm = torch.where(do_update[:, None], fmc_eff + fmis, fmc_eff)
+    else:
+        fm = fmc_eff + fmis if do_update else fmc_eff
+    return a0_val, pos.abs(), fm, pos.angle(), acc
+
+
+def _overlay(fm_win, am_win, dead_win, dd, o):
+    """The dead-track bootstrap (fm=140 Hz, am=1e-3 on harmonic 1,
+    functions.py:204-210) on gathered windows, with the reference's
+    left-visibility: a frame's window sees it at dead centers strictly left
+    of its own center, plus its own center when the frame itself is dead.
+    fm_win/am_win: [B, N, K]; dead_win: [B, N] dead centers under the
+    window; dd: [B] this frame dead; o: [N] offsets."""
+    use = dead_win & ((o[None, :] < 0) | ((o[None, :] == 0) & dd[:, None]))
+    first = (torch.arange(fm_win.shape[-1], device=fm_win.device)
+             == 0)[None, None, :]
+    ovl = use[..., None] & first
+    return (torch.where(ovl, DEAD_TRACK_F0, fm_win),
+            torch.where(ovl, DEAD_TRACK_AM, am_win))
+
+
+def dead_overlay_windows(fm_k, am_k, rows, dead_center, dd, o):
+    """Gather per-frame track windows with the dead-track overlay (JAX
+    eaqhm_tpu/models/engine.py:149-164).  fm_k/am_k: [L, K] track tables;
+    rows: [B, N] gather rows; dead_center: [L] dead analysis centers; dd:
+    [B] this frame dead; o: [N] offsets."""
+    return _overlay(fm_k[rows], am_k[rows], dead_center[rows], dd, o)
 
 
 def _iqhm_stage(s, centers, f0, K, wl, W: int, Kc: int, fs: float,
@@ -312,7 +361,6 @@ def _eaqhm_bucket(s, fm_current, am_current, centers, wl, dead, mask_k,
     # one row gather per batch: (fm, am, s, dead) packed in one table
     Dtab = torch.cat([fm_k, am_k, s[:, None], dead_center.to(dtype)[:, None]],
                      dim=1)
-    first = (torch.arange(Kc, device=s.device) == 0)[None, None, :]
     n = _batch_frames(chunk, len(o), Kc, solver.complex_dtype(dtype), s.device)
     parts = []
     for b0 in range(0, centers.shape[0], n):
@@ -321,11 +369,8 @@ def _eaqhm_bucket(s, fm_current, am_current, centers, wl, dead, mask_k,
         mk = mask_k[b0:b0 + n]
         with record_function("eaqhm/fit"):
             d = Dtab[(c[:, None] + o[None, :]).clamp(0, L - 1)]  # [B,N,2Kc+2]
-            use = (d[..., 2 * Kc + 1] != 0) & (
-                (o[None, :] < 0) | ((o[None, :] == 0) & dd[:, None]))
-            ovl = use[..., None] & first
-            fm_win = torch.where(ovl, DEAD_TRACK_F0, d[..., :Kc])
-            am_win = torch.where(ovl, DEAD_TRACK_AM, d[..., Kc:2 * Kc])
+            fm_win, am_win = _overlay(d[..., :Kc], d[..., Kc:2 * Kc],
+                                      d[..., 2 * Kc + 1] != 0, dd, o)
             R, rhs, dinv = solver.eaqhm_gram(
                 d[..., 2 * Kc], fm_win, am_win, o, wl[b0:b0 + n].clamp(min=1),
                 mk, fs, dtype=dtype)
@@ -495,14 +540,44 @@ def _package_strided(am, fm, ph, a0, s_recon, step: int, No: int):
     return stk, torch.cat([a0[:hi:step], s_recon])
 
 
-# Captured adaptations of recent geometries (CUDA only), most recent last.
-_GRAPH_CACHE_SIZE = 4
-_graphs: "OrderedDict[tuple, _FusedLoop]" = OrderedDict()
+# Captured adaptations of recent geometries (CUDA only), most recent last:
+# per key a pool of loops, each taken by one call at a time, so two threads
+# analyzing utterances of one geometry at once never share a loop's
+# buffers (the second builds and captures a loop of its own).
+_GRAPH_CACHE_SIZE = 4          # loops kept over all keys
+_graphs: "OrderedDict[tuple, List[_FusedLoop]]" = OrderedDict()
+_graphs_lock = threading.Lock()
+_capture_lock = threading.Lock()
 
 
 def clear_graph_cache() -> None:
     """Drop every captured adaptation graph and its memory pool."""
-    _graphs.clear()
+    with _graphs_lock:
+        _graphs.clear()
+
+
+def _take_loop(key) -> "Optional[_FusedLoop]":
+    """A cached loop of this key for the caller's sole use, or None."""
+    with _graphs_lock:
+        pool = _graphs.get(key)
+        if pool is None:
+            return None
+        loop = pool.pop()
+        if not pool:
+            del _graphs[key]
+        return loop
+
+
+def _keep_loop(key, loop: "_FusedLoop") -> None:
+    """Return a loop with a captured graph to the cache."""
+    with _graphs_lock:
+        _graphs.setdefault(key, []).append(loop)
+        _graphs.move_to_end(key)
+        while sum(len(v) for v in _graphs.values()) > _GRAPH_CACHE_SIZE:
+            oldest = next(iter(_graphs))
+            _graphs[oldest].pop(0)
+            if not _graphs[oldest]:
+                del _graphs[oldest]
 
 
 class _FusedLoop:
@@ -519,10 +594,11 @@ class _FusedLoop:
     run: it creates the library handles and workspaces the capture needs);
     the step is then captured once as a CUDA graph and every further
     adaptation is one replay, with the fm-mismatch bound h written to its
-    static scalar before it.  The graph stays in a cache keyed by the
+    static scalar before it.  The loop stays in a cache keyed by the
     geometry (``_Adapter.key``), so a later call of the same geometry
-    replays from adaptation 1 on.  A failed capture or replay raises: there
-    is no fallback to the host loop.
+    replays from adaptation 1 on; a call takes its loop out of the cache
+    for its own use and returns it at the end.  A failed capture or replay
+    raises: there is no fallback to the host loop.
     """
 
     def __init__(self, ad: _Adapter, do_update: bool):
@@ -577,21 +653,35 @@ class _FusedLoop:
             self.step()
             record["eager"] += 1
         else:
-            self.side.wait_stream(torch.cuda.current_stream())
+            self.side.wait_stream(torch.cuda.current_stream(self.side.device))
             with torch.cuda.stream(self.side):
                 self.step()
-            torch.cuda.current_stream().wait_stream(self.side)
+            torch.cuda.current_stream(self.side.device).wait_stream(self.side)
             record["eager"] += 1
         srer, stop = self.out.tolist()
         seconds = time.time() - t0
         if self.graph is None and self.side is not None and not (
                 stop or last):
             t_c = time.time()
-            chol.library()          # kernel attributes set outside capture
+            # kernel attributes set outside capture
+            chol.library(self.ad.s.device)
             chol.take_captured()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.side):
-                self.step()
+            # "thread_local": CUDA calls of other threads (stream workers)
+            # neither break this capture nor fail because of it.  One
+            # capture at a time, and not the torch.cuda.graph context, whose
+            # device synchronize fails while another thread captures.  The
+            # allocator's cached blocks are released first, as that context
+            # does (while any capture is under way the allocator releases
+            # none, so other threads' allocations could otherwise run out
+            # of memory that sits cached for another stream).
+            with _capture_lock, torch.cuda.stream(self.side):
+                torch.cuda.empty_cache()
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.step()
+                finally:
+                    graph.capture_end()
             self.captured = chol.take_captured()
             self.graph = graph
             record["capture_s"] = time.time() - t_c
@@ -605,11 +695,10 @@ def _fused_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
     record)."""
     t_a = time.time()
     key = ad.key(do_update)
-    loop = _graphs.get(key) if ad.s.is_cuda else None
+    loop = _take_loop(key) if ad.s.is_cuda else None
     if loop is None:
         loop = _FusedLoop(ad, do_update)
     else:
-        _graphs.move_to_end(key)
         loop.ad.load(ad)
     record = {"eager": 1, "replays": 0, "capture_s": 0.0,
               "cached_graph": loop.graph is not None}
@@ -627,10 +716,8 @@ def _fused_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
             if stop:
                 break
         fetched = (loop.stk.cpu().numpy(), loop.vec.cpu().numpy())
-    if loop.graph is not None and key not in _graphs:
-        _graphs[key] = loop
-        while len(_graphs) > _GRAPH_CACHE_SIZE:
-            _graphs.popitem(last=False)
+    if loop.graph is not None:
+        _keep_loop(key, loop)
     dt = time.time() - t_a
     timings = {"adapt_loop": dt, "graph_capture": record["capture_s"]}
     metrics = []

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from eaqhm_torch.ops.interp import cubic4_eval
-from eaqhm_torch.ops.scan import associative_scan
+from eaqhm_torch.ops.scan import associative_scan, cumsum
 
 MIN_INTERP_SIZE = 4  # reference misc.py:14
 _CPLEN = 48          # cp fixed point reached to f64 eps by ~24 unknowns
@@ -122,7 +122,7 @@ def segment_phase(seg_fm, ph_s, ph_e, step: int, fs: float):
     """
     dtype = seg_fm.dtype
     h = float(step)
-    pm = ph_s[:, None, :] + torch.cumsum(seg_fm, dim=1) * (2.0 * math.pi / fs)
+    pm = ph_s[:, None, :] + cumsum(seg_fm, dim=1) * (2.0 * math.pi / fs)
     pm_end = pm[:, -1, :]
     Mw = torch.round((pm_end - ph_e) / (2.0 * math.pi))
     er = math.pi * (pm_end - ph_e - 2.0 * math.pi * Mw) / (2.0 * h)

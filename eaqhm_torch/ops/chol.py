@@ -27,12 +27,14 @@ it runs the plain version.  ``chol_solve.launches`` / ``chol_subst.launches``
 count kernel launches and ``.shapes`` record each launch: (B, M, path, mode,
 keep_factor) and (B, M, path); ``.plain_calls`` counts the calls served by
 the plain version.  A launch recorded into a CUDA graph runs at every
-replay, not at capture: it goes to ``.captured``, and the graph's owner
-adds the captured launches to the counts at each replay (``take_captured``,
-``count_replay``; ``.replayed`` counts those).
+replay, not at capture: it goes to the capturing thread's record, and the
+graph's owner adds the captured launches to the counts at each replay
+(``take_captured``, ``count_replay``; ``.replayed`` counts those).  The
+counts are safe to update from several threads.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,6 +46,11 @@ _SYMBOLS = {torch.complex64: ("chol_factor_solve_c64", "chol_subst_c64"),
 MODES = ("guard", "nan")
 PATHS = ("resident", "global")
 _GUARD = 1e-30
+# The counts below are shared by every thread and updated under _lock; the
+# launches recorded during a CUDA graph capture are kept per thread (_tls).
+_lock = threading.Lock()
+_tls = threading.local()
+_prepared = set()          # CUDA device indices whose attributes are set
 
 
 class Factor(NamedTuple):
@@ -136,16 +143,24 @@ def unpack_factor(f: Factor) -> torch.Tensor:
     return L
 
 
-def library():
-    """The kernel library, its shared-memory attributes set (once, before
-    any launch: a CUDA graph capture then records the launches alone)."""
+def library(device=None):
+    """The kernel library.  With a CUDA device, the kernels' shared-memory
+    attributes are set on that device first (once per device, before any
+    launch there: a CUDA graph capture then records the launches alone;
+    ``cudaFuncSetAttribute`` applies to one device only)."""
     lib = build.load("chol_solve")
-    if not getattr(lib, "prepared", False):
-        err = lib.chol_prepare()
-        if err != 0:
-            raise RuntimeError(f"chol_solve: setting the kernels' shared "
-                               f"memory failed: cudaError {err}")
-        lib.prepared = True
+    if device is None:
+        return lib
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _prepared:
+        with _lock, torch.cuda.device(idx):
+            err = lib.chol_prepare()
+            if err != 0:
+                raise RuntimeError(f"chol_solve: setting the kernels' "
+                                   f"shared memory on cuda:{idx} failed: "
+                                   f"cudaError {err}")
+            _prepared.add(idx)
     return lib
 
 
@@ -159,9 +174,15 @@ def path_for(dtype: torch.dtype, M: int) -> str:
     return PATHS[p]
 
 
-def _stream(dev):
+def _launch(fn_name: str, dev: torch.device, *args) -> None:
+    """Call one launcher of the library on the current stream of dev, with
+    dev the current device (a stream belongs to one device)."""
+    lib = library(dev)
     with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
 
 
 def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
@@ -176,7 +197,8 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
     _check(R, rhs)
     _check_mode(mode)
     if _device_of(R) == "cpu":
-        chol_solve.plain_calls += 1
+        with _lock:
+            chol_solve.plain_calls += 1
         L = chol_factor_reference(R, mode)
         x = chol_subst_reference(L, rhs)
         return (x, Factor(L, None)) if keep_factor else x
@@ -189,14 +211,10 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
     if keep_factor:
         d = torch.empty((B, M), dtype=R.real.dtype, device=R.device)
     if B:
-        err = getattr(library(), _SYMBOLS[R.dtype][0])(
-            R.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-            None if L is None else L.data_ptr(),
-            None if d is None else d.data_ptr(),
-            B, M, int(mode == "nan"), _stream(R.device))
-        if err != 0:
-            raise RuntimeError(f"chol_solve kernel launch failed: "
-                               f"cudaError {err}")
+        _launch(_SYMBOLS[R.dtype][0], R.device, R.data_ptr(), rhs.data_ptr(),
+                x.data_ptr(), None if L is None else L.data_ptr(),
+                None if d is None else d.data_ptr(), B, M,
+                int(mode == "nan"))
         _count(chol_solve, (B, M, path, mode, keep_factor))
     return (x, Factor(L, d)) if keep_factor else x
 
@@ -211,7 +229,8 @@ def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError("chol_subst: rhs must be [B, M] of the factor's "
                          "dtype and device")
     if _device_of(rhs) == "cpu":
-        chol_subst.plain_calls += 1
+        with _lock:
+            chol_subst.plain_calls += 1
         return chol_subst_reference(unpack_factor(f), rhs)
     B, M = rhs.shape
     if (f.d is None or tuple(f.d.shape) != (B, M)
@@ -222,51 +241,59 @@ def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
                          f"[{B}, {M}] and contiguous tensors")
     x = torch.empty_like(rhs)
     if B:
-        err = getattr(library(), _SYMBOLS[rhs.dtype][1])(
-            f.L.data_ptr(), f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-            B, M, _stream(rhs.device))
-        if err != 0:
-            raise RuntimeError(f"chol_subst kernel launch failed: "
-                               f"cudaError {err}")
+        _launch(_SYMBOLS[rhs.dtype][1], rhs.device, f.L.data_ptr(),
+                f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, M)
         _count(chol_subst, (B, M, path_for(rhs.dtype, M)))
     return x
 
 
+def _captured() -> dict:
+    """This thread's record of launches made during a capture."""
+    rec = getattr(_tls, "captured", None)
+    if rec is None:
+        rec = _tls.captured = {fn.__name__: [] for fn in (chol_solve,
+                                                          chol_subst)}
+    return rec
+
+
 def _count(fn, shape) -> None:
     if torch.cuda.is_current_stream_capturing():
-        fn.captured.append(shape)
+        _captured()[fn.__name__].append(shape)
     else:
-        fn.launches += 1
-        fn.shapes.append(shape)
+        with _lock:
+            fn.launches += 1
+            fn.shapes.append(shape)
 
 
 def take_captured() -> dict:
-    """The launches recorded into the CUDA graph just captured, per entry
-    point, and a fresh record for the next capture."""
-    out = {}
-    for fn in (chol_solve, chol_subst):
-        out[fn.__name__] = fn.captured
-        fn.captured = []
+    """The launches this thread recorded into the CUDA graph it just
+    captured, per entry point, and a fresh record for its next capture
+    (per thread: a capture in one thread leaves another's record alone)."""
+    out = _captured()
+    _tls.captured = None
     return out
 
 
 def count_replay(captured: dict) -> None:
     """Count the launches of one replay of a graph (``take_captured``)."""
-    for fn in (chol_solve, chol_subst):
-        shapes = captured[fn.__name__]
-        fn.launches += len(shapes)
-        fn.replayed += len(shapes)
-        fn.shapes.extend(shapes)
+    with _lock:
+        for fn in (chol_solve, chol_subst):
+            shapes = captured[fn.__name__]
+            fn.launches += len(shapes)
+            fn.replayed += len(shapes)
+            fn.shapes.extend(shapes)
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count of this module to 0."""
-    for fn in (chol_solve, chol_subst):
-        fn.launches = 0
-        fn.shapes = []
-        fn.plain_calls = 0
-        fn.captured = []
-        fn.replayed = 0
+    """Set every launch and plain-call count of this module to 0, and this
+    thread's capture record."""
+    with _lock:
+        for fn in (chol_solve, chol_subst):
+            fn.launches = 0
+            fn.shapes = []
+            fn.plain_calls = 0
+            fn.replayed = 0
+    _tls.captured = None
 
 
 reset_counts()

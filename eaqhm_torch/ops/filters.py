@@ -133,11 +133,14 @@ def _lfilter_kernel(b, a, x, z0):
     y = torch.empty_like(x)
     zf = torch.empty_like(z0)
     rows, n = x.shape
+    # launched with x's device current (its stream belongs to it); the
+    # kernel uses no shared memory, so it sets no per-device attribute
+    lib = build.load("lfilter")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(build.load("lfilter"), sym[x.dtype])(
-        coef.data_ptr(), x.data_ptr(), z0.data_ptr(), y.data_ptr(),
-        zf.data_ptr(), rows, n, order, stream)
+        err = getattr(lib, sym[x.dtype])(
+            coef.data_ptr(), x.data_ptr(), z0.data_ptr(), y.data_ptr(),
+            zf.data_ptr(), rows, n, order,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lfilter kernel launch failed: cudaError {err}")
     lfilter.launches += 1

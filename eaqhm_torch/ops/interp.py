@@ -71,21 +71,25 @@ def notaknot_interp_uniform(yv, step: int, length: int):
     with the end cubic): the DC-track interpolation (reference
     functions.py:340, interp1d kind=3 over the analysis grid).
 
-    yv: [n] anchor values at samples 0, step, 2*step, ...; returns [length].
+    yv: [n] anchor values at samples 0, step, 2*step, ...; returns
+    [length].  yv [n, C] interpolates C independent columns at once and
+    returns [length, C].
     """
     from eaqhm_torch.models.tracks import _segmented_notaknot_M
 
+    if yv.dim() == 1:
+        return notaknot_interp_uniform(yv[:, None], step, length)[:, 0]
     dtype = yv.dtype
     dev = yv.device
-    n = yv.shape[0]
+    n, C = yv.shape
     h = float(step)
-    in_run = torch.ones((n, 1), dtype=torch.bool, device=dev)
-    start = torch.zeros((n, 1), dtype=torch.long, device=dev)
-    end = torch.full((n, 1), n - 1, dtype=torch.long, device=dev)
-    M = _segmented_notaknot_M(yv[:, None], in_run, start, end, h)[:, 0]
+    in_run = torch.ones((n, C), dtype=torch.bool, device=dev)
+    start = torch.zeros((n, C), dtype=torch.long, device=dev)
+    end = torch.full((n, C), n - 1, dtype=torch.long, device=dev)
+    M = _segmented_notaknot_M(yv, in_run, start, end, h)
 
-    r = torch.arange(step, dtype=dtype, device=dev)[None, :]       # [1, step]
-    B = r / h
+    r = torch.arange(step, dtype=dtype, device=dev)[None, :, None]
+    B = r / h                                             # [1, step, 1]
     A = 1.0 - B
     ys = yv[:n - 1][:, None]
     ye = yv[1:][:, None]
@@ -93,12 +97,13 @@ def notaknot_interp_uniform(yv, step: int, length: int):
     Me = M[1:][:, None]
     seg = (A * ys + B * ye
            + ((A ** 3 - A) * Ms + (B ** 3 - B) * Me) * (h * h) / 6.0)
-    main = seg.reshape(-1)                                # [(n-1)*step]
+    main = seg.reshape(-1, C)                             # [(n-1)*step, C]
     ncov = (n - 1) * step
     if length <= ncov:
         return main[:length]
     # tail: continue the last segment's cubic (extrapolation)
-    rt = torch.arange(step, step + (length - ncov), dtype=dtype, device=dev)
+    rt = torch.arange(step, step + (length - ncov), dtype=dtype,
+                      device=dev)[:, None]
     Bt = rt / h
     At = 1.0 - Bt
     tail = (At * yv[n - 2] + Bt * yv[n - 1]

@@ -39,3 +39,19 @@ def associative_scan(fn: Callable[[Elems, Elems], Elems], elems: Elems,
                       for e, c in zip(elems, comb))
         d *= 2
     return elems
+
+
+def _add(l: Elems, r: Elems) -> Elems:
+    return (l[0] + r[0],)
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.cumsum, except on a floating CUDA tensor while deterministic
+    algorithms are on (``torch.use_deterministic_algorithms``), where
+    PyTorch's CUDA cumsum raises: there the log-depth ``associative_scan``
+    of additions, which sums in a fixed order (another order than
+    torch.cumsum's, so its roundings differ)."""
+    if x.is_cuda and (x.is_floating_point() or x.is_complex()) and \
+            torch.are_deterministic_algorithms_enabled():
+        return associative_scan(_add, (x,), dim)[0]
+    return torch.cumsum(x, dim=dim)

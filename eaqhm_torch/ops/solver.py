@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from eaqhm_torch.ops import scan
 from eaqhm_torch.ops.chol import chol_solve, chol_subst
 
 _RIDGE = 1e-5
@@ -333,8 +334,8 @@ def eaqhm_gram(s_win, fm_win, am_win, o, wl, colmask_k, fs,
     # partial sums are exact in float32 and reduce mod fs exactly
     fm_q = torch.round(fm_r)
     fm_res = fm_r - fm_q
-    cq = torch.cumsum(fm_q, dim=1)
-    cr = torch.cumsum(fm_res, dim=1)
+    cq = scan.cumsum(fm_q, dim=1)
+    cr = scan.cumsum(fm_res, dim=1)
     psi_q = cq - cq[:, W:W + 1, :]
     psi_r = cr - cr[:, W:W + 1, :]
 

@@ -1,11 +1,18 @@
 """Corpus driver: many utterances, failure isolation, checkpoint/resume.
 
-The reference processes one file per run (reference main.py:62).
-`run_corpus` analyzes utterances one after another on one device with the
-full convergence loop: a bad file marks its utterance failed and the run
-goes on, and finished utterances are persisted through `CorpusCheckpoint`
-so a restarted run resumes where it stopped.  The sharded throughput path
-of the JAX package (`run_corpus_sharded`) is not ported yet.
+The reference processes one file per run (reference main.py:62).  Two modes
+(eaqhm_tpu/parallel/corpus.py):
+
+- `run_corpus` analyzes utterances one after another on one device with the
+  full convergence loop: a bad file marks its utterance failed and the run
+  goes on, and finished utterances are persisted through `CorpusCheckpoint`
+  so a restarted run resumes where it stopped.
+- `run_corpus_sharded` runs batches of padded utterances through
+  `parallel.batch_engine.analyze_batch` over a (data, model) mesh of
+  processes (`parallel.mesh`): every rank runs it on the same paths and
+  forms the same batches, each batch is split over the mesh, and rank 0
+  writes the checkpoint.  A degenerate mesh (none, or one rank) delegates
+  to `run_corpus`.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from eaqhm_torch.config import EaqhmConfig
 from eaqhm_torch.utils import io as io_mod
 from eaqhm_torch.utils.checkpoint import CorpusCheckpoint
 from eaqhm_torch.utils.progress import progress_bar
+
+_READ_FAILED = -1
 
 
 @dataclass
@@ -107,3 +116,140 @@ def pad_batch(signals: Sequence[np.ndarray], length: Optional[int] = None):
     for i, s in enumerate(signals):
         out[i, :min(len(s), L)] = s[:L]
     return out, ls
+
+
+def _corpus_plan(paths, ckpt):
+    """(uid, fs or _READ_FAILED or None for resumed over, signal, error)
+    per path, on this rank."""
+    plan = []
+    for path in paths:
+        uid = _utt_id(path)
+        if ckpt is not None and ckpt.is_done(uid):
+            plan.append((uid, None, None, None))
+            continue
+        try:
+            fs, s = io_mod.read_wav(path)
+            plan.append((uid, int(fs), s, None))
+        except Exception as e:  # noqa: BLE001 (isolation is the point)
+            plan.append((uid, _READ_FAILED, None, f"{type(e).__name__}: {e}"))
+    return plan
+
+
+def run_corpus_sharded(paths: Sequence[str],
+                       config: EaqhmConfig = EaqhmConfig(), mesh=None,
+                       batch_size: Optional[int] = None,
+                       checkpoint_dir: Optional[str] = None,
+                       verbose: bool = False, device=None) -> CorpusResult:
+    """Throughput corpus path: the full pipeline (pitch, VAD, adaptation
+    0, the eaQHM loop), batched over padded utterances and split over the
+    (data, model) mesh (``parallel.batch_engine``).
+
+    Every rank of the mesh calls it with the same paths.  Each rank reads
+    the corpus and the checkpoint before any batch runs, and the ranks
+    check that they agree on it (the resume decision and which files
+    read), so all form the same batches: grouped by sample rate (a batch
+    runs at one rate), batch_size utterances each (default the data size;
+    analyze_batch pads a batch to a multiple of it).  Each utterance is
+    analyzed once across the world, and rank 0 alone writes its
+    checkpoint.  Failures are isolated per file read and per batch.
+    mesh None builds one over the process group when there is one
+    (``make_mesh``); no mesh, or a mesh of one rank, runs ``run_corpus``.
+    """
+    from eaqhm_torch.parallel.batch_engine import analyze_batch
+
+    if mesh is None:
+        try:
+            from eaqhm_torch.parallel.mesh import make_mesh
+            mesh = make_mesh()
+        except RuntimeError:          # no process group
+            mesh = None
+    if mesh is None or mesh.size() == 1:
+        # degenerate mesh: the batch's padding buys nothing, and the
+        # per-utterance engine is the single-device corpus path
+        return run_corpus(paths, config, checkpoint_dir=checkpoint_dir,
+                          verbose=verbose, device=device)
+    import torch.distributed as dist
+
+    if batch_size is None:
+        batch_size = mesh.shape[0]
+    ckpt = CorpusCheckpoint(checkpoint_dir) if checkpoint_dir else None
+    writer = dist.get_rank() == 0
+    res = CorpusResult()
+    t0 = time.time()
+    plan = _corpus_plan(paths, ckpt)
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, [p[:2] for p in plan])
+    if any(v != views[0] for v in views):
+        raise RuntimeError("run_corpus_sharded: the ranks disagree on the "
+                           "corpus (checkpoint or file reads differ)")
+
+    def flush(batch):
+        try:
+            out = analyze_batch([b[2] for b in batch], batch[0][1], config,
+                                mesh=mesh, verbose=verbose, device=device)
+        except Exception as e:  # noqa: BLE001 (isolation is the point)
+            for uid, _, _ in batch:
+                res.failed[uid] = f"{type(e).__name__}: {e}"
+                if ckpt is not None and writer:
+                    ckpt.mark_failed(uid, str(e))
+            return
+        for i, (uid, fs_i, s_i) in enumerate(batch):
+            res.audio_seconds += len(s_i) / fs_i
+            res.done[uid] = {
+                "final_srer_db": float(out.final_srer[i]),
+                "srer_db": [float(x) for x in out.srer[i]],
+                "n_adaptations": int(out.n_adaptations),
+            }
+            if ckpt is not None and writer:
+                ckpt.save_result(uid, list(out.srer[i]),
+                                 out.s_recon[i, :len(s_i)])
+
+    pending: dict = {}                      # fs -> [(uid, fs, signal)]
+    for uid, fs, s, err in plan:
+        if fs is None:
+            res.skipped.append(uid)
+            continue
+        if fs == _READ_FAILED:
+            res.failed[uid] = err
+            if ckpt is not None and writer:
+                ckpt.mark_failed(uid, err)
+            continue
+        pending.setdefault(fs, []).append((uid, fs, s))
+        if len(pending[fs]) >= batch_size:
+            flush(pending[fs][:batch_size])
+            pending[fs] = pending[fs][batch_size:]
+    for fsk in sorted(pending):             # flush the tails
+        q = pending[fsk]
+        while q:
+            flush(q[:batch_size])
+            q = q[batch_size:]
+    res.elapsed = time.time() - t0
+    return res
+
+
+def corpus_signals(recording, n: int, fs: int = 16000,
+                   seconds: float = 2.0):
+    """The JAX package's corpus inputs (eaqhm_tpu/benchmarks.py:88-116)
+    with ``recording`` in place of SA19: n utterances of ``seconds``; even
+    i the slice of the recording at (i//2*9000 + 4000) % (len - length),
+    odd i a tapered five-harmonic tone in the female pitch band (numpy
+    seed 0, drawn in the JAX order)."""
+    length = int(seconds * fs)
+    rng = np.random.default_rng(0)
+    sigs = []
+    for i in range(n):
+        if i % 2 == 0:
+            off = (i // 2 * 9000 + 4000) % (len(recording) - length)
+            sigs.append(np.array(recording[off:off + length], np.float64))
+        else:
+            f0 = rng.uniform(170.0, 280.0)
+            t = np.arange(length) / fs
+            ph = 2 * np.pi * f0 * t
+            s = sum((0.35 / k) * np.cos(k * ph + rng.uniform(0, 2 * np.pi))
+                    for k in range(1, 6))
+            fade = 1200
+            env = np.ones(length)
+            env[:fade] = 0.5 - 0.5 * np.cos(np.pi * np.arange(fade) / fade)
+            env[-fade:] = env[:fade][::-1]
+            sigs.append(s * env)
+    return sigs

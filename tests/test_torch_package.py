@@ -57,7 +57,9 @@ def test_import_leaves_jax_out():
             "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol, "
             "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
             "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "
-            "eaqhm_torch.parallel.corpus, eaqhm_torch.utils.checkpoint, "
+            "eaqhm_torch.parallel.corpus, eaqhm_torch.parallel.streams, "
+            "eaqhm_torch.parallel.batch_engine, eaqhm_torch.parallel.mesh, "
+            "eaqhm_torch.parallel.determinism, eaqhm_torch.utils.checkpoint, "
             "eaqhm_torch.utils.compat, eaqhm_torch.utils.plots, "
             "eaqhm_torch.utils.progress; "
             "print(sorted(m for m in sys.modules "

@@ -21,7 +21,10 @@ Cases (inputs made here with numpy from a seed, stored in the file):
 - engine_options/<case>: eaqhm_tpu.analyze on the 1 s tone with
   solve_method="block_inverse" (float64), and on its first 0.5 s with
   stop_on_decline=False and collect_metrics=True (partials=12 keeps the
-  four adaptations cheap).
+  four adaptations cheap);
+- batch/: eaqhm_tpu.parallel.batch_engine.analyze_batch (mesh=None) on the
+  two 9,601-sample harmonic utterances of tests/test_batch_engine.py (f0
+  205 and 230 Hz, partials=10, max_adaptations=3, float64).
 
     JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py [--cases ...]
 
@@ -47,6 +50,8 @@ from eaqhm_tpu.config import EaqhmConfig  # noqa: E402
 from eaqhm_tpu.models import engine  # noqa: E402
 from eaqhm_tpu.ops import solver  # noqa: E402
 from eaqhm_tpu.ops.pallas_chol import chol_solve  # noqa: E402
+from eaqhm_tpu.parallel import batch_engine  # noqa: E402
+from tests.test_batch_engine import _harmonic_utterance  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
                    "golden", "torch_parity_ref.npz")
@@ -86,7 +91,10 @@ OPTION_CASES = {
         gender=(150.0, 250.0), max_adaptations=3, partials=12,
         stop_on_decline=False, collect_metrics=True)),
 }
-CASES = ("engine", "chol", "pallas_f64", "block_inverse", "engine_options")
+BATCH_CONFIG = dict(gender="female", partials=10, max_adaptations=3,
+                    dtype="float64")
+CASES = ("engine", "chol", "pallas_f64", "block_inverse", "engine_options",
+         "batch")
 RESULT_FIELDS = ("srer", "s_recon", "det_ti", "det_is_speech",
                  "det_is_voiced", "det_a0", "det_ak", "det_frange", "det_pk",
                  "f0_grid")
@@ -232,6 +240,25 @@ def engine_option_cases(out):
         print(name, "srer", res.srer)
 
 
+def batch_signals():
+    """The inputs of tests/test_batch_engine.py's batch_setup."""
+    return [_harmonic_utterance(9601, FS, f0=205.0, seed=0),
+            _harmonic_utterance(9601, FS, f0=230.0, seed=1, jitter=0.01)]
+
+
+def batch_cases(out):
+    sigs = batch_signals()
+    cfg = EaqhmConfig(**BATCH_CONFIG)
+    res = batch_engine.analyze_batch(sigs, FS, cfg, mesh=None)
+    p = "batch/"
+    out[p + "signals"] = np.stack(sigs)
+    out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
+    for f in ("srer", "final_srer", "s_recon", "n_adaptations",
+              "srer_mean"):
+        out[p + f] = np.asarray(getattr(res, f))
+    print("batch srer", res.srer)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
@@ -245,7 +272,8 @@ def main():
         {"engine": engine_cases, "chol": chol_cases,
          "pallas_f64": pallas_f64_cases,
          "block_inverse": block_inverse_cases,
-         "engine_options": engine_option_cases}[case](out)
+         "engine_options": engine_option_cases,
+         "batch": batch_cases}[case](out)
     np.savez_compressed(OUT, **out)
     print("wrote", OUT, os.path.getsize(OUT) // 1024, "KB")
 
