@@ -46,14 +46,42 @@
    analyze_batch equal to mesh=None, run_corpus_sharded with resume);
    determinism (``chip_smoke.py --determinism`` as a subprocess: two runs
    under determinism.apply() bitwise equal).
-9. One JSON line of the kernels (each kernel at every launch the paths
+9. Stress (the JAX benchmark's config 4, eaqhm_torch.benchmarks): the 60 s
+   signal at f0 76-84 Hz with the male preset, max_adaptations=10, at full
+   width (tiers Kc = 96 and 128: M = 386 and 514), once in float64 (host
+   loop) and once in float32 (the default "block_inverse"): per adaptation
+   the wall, the engine's spans on the device timeline (pitch, fit, solve,
+   tracks) and the SRER, the peak device memory; float32's final SRER under
+   the -0.1 dB gate against float64's, the TPU's recorded float32 final
+   beside them as context.  Then float64 on the stress slice (samples
+   32,000-40,000, all 470 frames at M = 514, max_adaptations=2) held to the
+   JAX fixture (tests/golden/torch_parity_ref.npz, group stress/*) as in 3,
+   and the kernel at the stress paths' (B, M) cells against its plain
+   version and cuSOLVER.
+10. Presets (the JAX benchmark's config 2: fc=30, full_waveform=True) on
+   the resynthesis, per preset (female, male, child): float64 on the
+   fixture's high-passed input held to its presets/* group as in 3 (the
+   host high-pass, scipy's filtfilt, moves with the scipy version), then
+   config 2 itself in float64 (printed against the fixture) and float32
+   (under the gate).
+11. Corpus-64 (config 3's scale): benchmarks.bench_config3(batch=64) in
+   float64 on one card (the sequential per-utterance path, JAX's rule for
+   one device), then analyze_batch on the same 64 utterances (audio-s/s,
+   launches, per-utterance final-SRER gaps to the sequential run).
+12. One JSON line of the kernels (each kernel at every launch the paths
    made, launches counted per entry point and per path, counts set to 0
    just before each path and read just after), the nvidia-smi line, and as
    the last line {"ok": true, "device": {...}}.
 
-Any failure raises and exits non-zero before the last line.  Without CUDA,
-or outside a checkout of the repository, it fails.
+    python3 chip_smoke.py --phases stress presets    # some phases only
+
+runs the setup and the phases named (base: 2-7; corpus: 8; stress: 9;
+presets: 10; corpus64: 11) and a kernels line over them; the default is
+all of them.  Any failure raises and exits non-zero before the last line.
+Without CUDA, or outside a checkout of the repository, it fails.
 """
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -84,6 +112,14 @@ MESH_SRER_TOL_DB = 1e-8     # tests/test_batch_engine.py:55-58
 MESH_WAVE_TOL = 1e-9
 CORPUS_N = 16               # utterances of the corpus phases
 BATCH_N = 8                 # utterances of the batch phases
+PHASES = ("base", "corpus", "stress", "presets", "corpus64")
+STRESS_SECONDS = 60.0       # config 4's full signal
+STRESS_SLICE = (32000, 40000)
+# the JAX package's config 4 on its TPU v5e in float32 (tools/out/
+# benchmarks_r5.json): printed as context, not a gate
+TPU_STRESS_FINAL_DB = 29.6676
+PRESETS = ("female", "male", "child")
+CORPUS64_N = 64
 
 
 def log(*a):
@@ -162,12 +198,13 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel"):
     """Each (dtype, B, M) cell, both pivot rules: the fused solve and the
     kept factor's substitution against the plain versions on the card;
     times of the fused solve ("nan" rule, no factor kept) and of the
-    cuSOLVER route."""
+    cuSOLVER route.  cells: (B, M) pairs for both types, or a dict of them
+    per type name."""
     worst = {}
     for dt in (torch.complex64, torch.complex128):
         cname = str(dt).split(".")[-1]
         tol = KERNEL_TOL[cname]
-        for B, M in cells:
+        for B, M in (cells[cname] if isinstance(cells, dict) else cells):
             R, b = hpd_batch(B, M, seed=M, dtype=dt, device="cuda")
             path = chol.path_for(dt, M)
             errs = {}
@@ -757,6 +794,234 @@ def determinism_phase(out64):
     assert rep["srer_bitwise"], rep
 
 
+class SpanTimer:
+    """The engine's spans (eaqhm/pitch, fit, solve, tracks) timed on the
+    device timeline: while it is entered, engine.record_function also
+    records a CUDA event on the current stream at each span's start and
+    end, so a span's seconds are the device time from the first of its
+    launches to the end of its last, gaps included.  per_adaptation() sums
+    them per adaptation (each ends with its one tracks span; the pitch
+    span falls in adaptation 0)."""
+
+    def __init__(self, torch, engine):
+        self.torch = torch
+        self.engine = engine
+        self.events = []
+
+    def __enter__(self):
+        torch, events = self.torch, self.events
+        orig = self.orig = self.engine.record_function
+
+        @contextlib.contextmanager
+        def span(name):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            with orig(name):
+                yield
+            e1.record()
+            events.append((name.split("/")[-1], e0, e1))
+
+        self.engine.record_function = span
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.record_function = self.orig
+
+    def per_adaptation(self):
+        self.torch.cuda.synchronize()
+        out, cur = [], {}
+        for name, e0, e1 in self.events:
+            cur[name] = cur.get(name, 0.0) + e0.elapsed_time(e1) / 1e3
+            if name == "tracks":
+                out.append(cur)
+                cur = {}
+        return out
+
+
+def fixture_group(ref, prefix):
+    """The entries of one fixture group, keys without the prefix."""
+    return {k[len(prefix):]: ref[k] for k in ref.files
+            if k.startswith(prefix)}
+
+
+def solve_cells(engine, res, cdtype, chunk):
+    """The (B, M) of the largest batch the solve gets per tier of a result:
+    the tier's frames, cut at the batch budget (engine._batch_frames)."""
+    return sorted({(min(n, engine._batch_frames(chunk, 2 * W + 1, Kc, cdtype,
+                                                "cuda")), 2 * (2 * Kc + 1))
+                   for n, W, Kc in res.tiers})
+
+
+def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
+    """Config 4 at full width, float64 (host loop) then float32 (the
+    default solve), each once with the counts set to 0 just before it:
+    wall, peak device memory, launches, and per adaptation the wall, the
+    spans' device seconds and the SRER; float32's final SRER under the gate
+    against float64's.  Then float64 on the stress slice held to the JAX
+    fixture.  Returns ({path: launch shapes}, kernel cells per type)."""
+    s = benchmarks.stress_signal(STRESS_SECONDS)
+    results, shapes, cells = {}, {}, {}
+    for dt, cname in (("float64", "complex128"), ("float32", "complex64")):
+        cfg = benchmarks.stress_config(benchmarks.Run("cuda", dtype=dt))
+        assert cfg.dtype == dt
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chol.reset_counts()
+        with SpanTimer(torch, engine) as spans:
+            t0 = time.time()
+            res = eaqhm_torch.analyze(s, FS, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        sh = chol_shapes(chol)
+        assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
+        shapes[f"{dt}_stress"] = sh
+        peak = torch.cuda.max_memory_allocated()
+        per = spans.per_adaptation()
+        assert len(per) == len(res.srer) == len(res.metrics), (len(per),
+                                                                res.srer)
+        log(f"stress {dt}: {STRESS_SECONDS:g} s of audio (male, "
+            f"max_adaptations=10), wall {wall:.3f} s = "
+            f"{STRESS_SECONDS / wall:.4f} audio-s/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, tiers {res.tiers}, {len(res.srer)} "
+            f"adaptations, launches chol_solve {len(sh[0])} chol_subst "
+            f"{len(sh[1])} (B, M, path) {dict(Counter(x[:3] for x in sh[0]))}"
+            f"; stages before the loop "
+            f"{ {k: round(v, 3) for k, v in res.timings.items() if not k.startswith('adaptation')} }")
+        for a, m in enumerate(res.metrics):
+            log(f"stress {dt} adaptation {a}: wall {m['seconds']:.3f} s, SRER "
+                f"{m['srer_db']:.6f} dB, device spans (s) "
+                f"{ {k: round(v, 4) for k, v in per[a].items()} }")
+        assert np.all(np.isfinite(res.srer))
+        assert np.all(np.isfinite(res.s_recon))
+        results[dt] = res
+        cells[cname] = solve_cells(engine, res, getattr(torch, cname),
+                                   cfg.chunk)
+    f64, f32 = max(results["float64"].srer), max(results["float32"].srer)
+    log(f"stress final SRER: float32 {f32:.6f} dB vs float64 {f64:.6f} dB "
+        f"(delta {f32 - f64:+.6f}, gate >= -{F32_GATE_DB}); the JAX "
+        f"package's float32 on its TPU recorded {TPU_STRESS_FINAL_DB} dB "
+        f"over 7 adaptations (tools/out/benchmarks_r5.json: context, not a "
+        f"gate)")
+    assert f32 >= f64 - F32_GATE_DB, (f32, f64)
+    # the solve batches the float64 path launched are the cells computed
+    # from its tiers
+    launched = {}
+    for B, M, *_ in shapes["float64_stress"][0]:
+        launched[M] = max(launched.get(M, 0), B)
+    assert sorted((B, M) for M, B in launched.items()) \
+        == cells["complex128"], (launched, cells)
+    a, b = STRESS_SLICE
+    ref = fixture_group(pref, "stress/")
+    assert np.array_equal(s[a:b], ref["signal"])
+    cfg = eaqhm_torch.config_from_dict(json.loads(str(ref["config"])))
+    chol.reset_counts()
+    t0 = time.time()
+    res = eaqhm_torch.analyze(s[a:b], FS, cfg, device="cuda")
+    torch.cuda.synchronize()
+    shapes["float64_stress_slice"] = chol_shapes(chol)
+    log(f"stress slice (samples {a}-{b}, max_adaptations="
+        f"{cfg.max_adaptations}): {time.time() - t0:.3f} s, tiers "
+        f"{res.tiers}, srer {res.srer}")
+    assert res.tiers == [(470, 344, 128)], res.tiers
+    check_fixture(res, ref, "stress slice float64 (M = 514)")
+    return shapes, cells
+
+
+def presets_phase(torch, chol, eaqhm_torch, filters, benchmarks, sig,
+                  pref):
+    """Config 2 on the resynthesis, per preset.  Its 30 Hz high-pass runs
+    on the host (scipy's filtfilt, in both packages), and its output moves
+    with the installed scipy; so the float64 parity check analyzes the
+    high-passed signal the JAX fixture analyzed (presets/highpassed, fc=0:
+    the same input to everything after the filter) and is held to
+    presets/<gender>/* as in 3.  Then config 2 itself (fc=30, this
+    machine's filter): float64 printed against the fixture (not gated),
+    float32 (the default solve) under the gate.  Returns {path: launch
+    shapes}."""
+    from scipy.signal import filtfilt
+    run = benchmarks.Run("cuda", dtype="float64")
+    hp = pref["presets/highpassed"]
+    b, a, _ = filters.design_ellip(float(FS), 30.0, "highpass")
+    log(f"presets: this machine's 30 Hz high-pass of the resynthesis vs the "
+        f"fixture's: max|d| {np.abs(filtfilt(b, a, sig) - hp).max():.3e} "
+        f"(host scipy; not gated)")
+    shapes = {"float64_presets": ([], []), "float32_presets": ([], [])}
+
+    def call(g, what, s, cfg, path):
+        chol.reset_counts()
+        t0 = time.time()
+        res = eaqhm_torch.analyze(s, FS, cfg, device="cuda")
+        torch.cuda.synchronize()
+        el = time.time() - t0
+        sh = chol_shapes(chol)
+        assert chol.chol_solve.plain_calls == 0
+        shapes[path][0].extend(sh[0])
+        shapes[path][1].extend(sh[1])
+        log(f"presets {g} {what}: {el:.3f} s, tiers {res.tiers}, srer "
+            f"{res.srer}, launches {len(sh[0])} + {len(sh[1])} (B, M) "
+            f"{dict(Counter(x[:2] for x in sh[0]))}")
+        return res
+
+    for g in PRESETS:
+        ref = fixture_group(pref, f"presets/{g}/")
+        cfg = eaqhm_torch.config_from_dict(json.loads(str(ref["config"])))
+        assert cfg == run.config(gender=g, fc=30.0,
+                                 full_waveform=True), cfg
+        res = call(g, "float64 on the fixture's high-passed input", hp,
+                   dataclasses.replace(cfg, fc=0.0), "float64_presets")
+        check_fixture(res, ref, f"presets {g} float64")
+        res = call(g, "float64 (fc=30 on this machine)", sig, cfg,
+                   "float64_presets")
+        d = (float(np.max(np.abs(np.asarray(res.srer) - ref["srer"])))
+             if len(res.srer) == len(ref["srer"]) else float("nan"))
+        log(f"presets {g} float64 with this machine's high-pass vs the "
+            f"fixture: max|dSRER| {d:.3e} dB, adaptations {len(res.srer)} "
+            f"vs {len(ref['srer'])} (not gated)")
+        res = call(g, "float32 (fc=30, default solve)", sig,
+                   dataclasses.replace(cfg, dtype="float32"),
+                   "float32_presets")
+        check_gate(res, ref, f"presets {g} float32 (default solve)")
+    return shapes
+
+
+def corpus64_phase(torch, chol, benchmarks, batch_engine):
+    """Config 3 at BASELINE.json's scale: bench_config3(batch=64) in
+    float64 on one card (JAX's rule: the sequential per-utterance engine),
+    then analyze_batch (float64) on the same 64 utterances, first and warm
+    call, with the per-utterance final-SRER gaps to the sequential run.
+    Returns {path: launch shapes of analyze_batch's first call}."""
+    run = benchmarks.Run("cuda", dtype="float64")
+    line, seq = benchmarks.bench_config3(run, batch=CORPUS64_N, repeats=1)
+    assert line["path"] == "sequential_per_utterance", line
+    assert line["kernels"]["chol_solve"]["launches"] > 0
+    sigs, fs, _ = benchmarks.corpus(run, CORPUS64_N, 2.0)
+    cfg = benchmarks.corpus_config(run)
+    chol.reset_counts()
+    t0 = time.time()
+    out = batch_engine.analyze_batch(sigs, fs, cfg, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    sh = chol_shapes(chol)
+    assert chol.chol_solve.plain_calls == 0
+    t0 = time.time()
+    batch_engine.analyze_batch(sigs, fs, cfg, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    gaps = np.asarray(out.final_srer) - np.asarray(seq["final_srer"])
+    audio = CORPUS64_N * 2.0
+    log(f"corpus-64: sequential (bench_config3, float64) "
+        f"{line['value']} audio-s/s ({line['elapsed_s']} s); analyze_batch "
+        f"first call {first_s:.3f} s, warm call {warm_s:.3f} s = "
+        f"{audio / warm_s:.3f} audio-s/s, {out.n_adaptations} lockstep "
+        f"adaptations, launches {len(sh[0])} (B, M) "
+        f"{dict(Counter(x[:2] for x in sh[0]))}; final SRER gap per "
+        f"utterance (batch - sequential, dB, not gated): max |gap| "
+        f"{np.abs(gaps).max():.3e}, {np.round(gaps, 4).tolist()}")
+    assert np.all(np.isfinite(out.srer)) and len(gaps) == CORPUS64_N
+    return {"float64_batch64": sh}
+
+
 def lfilter_line_entry(torch, filters, shapes):
     """The lfilter kernel at every launch the VAD path made, on seeded
     inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
@@ -796,14 +1061,15 @@ def lfilter_line_entry(torch, filters, shapes):
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
-def main():
+def main(phases=PHASES):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs on a GPU")
     sys.path.insert(0, ROOT)
     import eaqhm_torch
+    from eaqhm_torch import benchmarks
     from eaqhm_torch.kernels import build
-    from eaqhm_torch.models import vad
+    from eaqhm_torch.models import engine, vad
     from eaqhm_torch.ops import chol, filters, solver
     from eaqhm_torch.parallel import batch_engine, streams
     from eaqhm_torch.parallel import corpus as corpus_mod
@@ -816,8 +1082,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    import scipy
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+        f"cuda {torch.version.cuda} scipy {scipy.__version__} numpy "
+        f"{np.__version__} device {torch.cuda.get_device_name(0)}; "
+        f"phases {list(phases)}")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
 
@@ -828,82 +1097,115 @@ def main():
     log(f"kernel build: {build_s:.2f} s ({list(build.KERNELS)}, one nvcc "
         f"per source, started together from one thread each)")
 
-    worst = kernel_phase(torch, chol)
-    log(f"kernel phase max relative error: {worst}")
-    non_pd_nan_phase(torch, chol)
-    non_pd_ridge_phase(torch, chol, solver)
-
     ref = np.load(os.path.join(GOLDEN, "torch_smoke_ref.npz"))
+    pref = np.load(os.path.join(GOLDEN, "torch_parity_ref.npz"))
     sig = np.load(os.path.join(GOLDEN, "sa19_golden.npz"))["s_recon"]
     shapes = {"complex128": {}, "complex64": {}}
+    lf_shapes = None
 
-    res, _, shapes["complex128"]["float64_host"], _, first64 = run_path(
-        torch, chol, eaqhm_torch, sig, "float64 host loop",
-        dtype="float64")
-    log(f"float64 warm-up (kernel build + first call): "
-        f"{build_s + first64:.3f} s")
-    check_fixture(res, ref, "float64 host loop")
+    def keep(by_path):
+        for path, sh in by_path.items():
+            shapes["complex128" if path.startswith("float64")
+                   else "complex64"][path] = sh
 
-    res, _, sh, rec, _ = run_path(
-        torch, chol, eaqhm_torch, sig, "float32 pallas", dtype="float32",
-        solve_method="pallas")
-    shapes["complex64"]["float32_pallas"] = sh
-    check_gate(res, ref, "float32 pallas")
-    # "pallas": one factorization and one substitution per batch
-    assert rec["launches"] == rec["subst"] > 0, rec
+    if "base" in phases:
+        worst = kernel_phase(torch, chol)
+        log(f"kernel phase max relative error: {worst}")
+        non_pd_nan_phase(torch, chol)
+        non_pd_ridge_phase(torch, chol, solver)
 
-    res, _, sh, rec, _ = run_path(
-        torch, chol, eaqhm_torch, sig, "float32 block_inverse (default)",
-        dtype="float32")
-    shapes["complex64"]["float32_block_inverse"] = sh
-    check_gate(res, ref, "float32 block_inverse")
+        res, _, shapes["complex128"]["float64_host"], _, first64 = run_path(
+            torch, chol, eaqhm_torch, sig, "float64 host loop",
+            dtype="float64")
+        log(f"float64 warm-up (kernel build + first call): "
+            f"{build_s + first64:.3f} s")
+        check_fixture(res, ref, "float64 host loop")
 
-    res, warm, sh, rec, _ = run_path(
-        torch, chol, eaqhm_torch, sig, "float64 fused loop",
-        dtype="float64", fused_adapt_loop=True)
-    shapes["complex128"]["float64_fused"] = sh
-    check_fixture(res, ref, "float64 fused loop (first call)")
-    check_fixture(warm, ref, "float64 fused loop (warm call)")
-    check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
-                dtype="float64", fused_adapt_loop=True)
+        res, _, sh, rec, _ = run_path(
+            torch, chol, eaqhm_torch, sig, "float32 pallas",
+            dtype="float32", solve_method="pallas")
+        shapes["complex64"]["float32_pallas"] = sh
+        check_gate(res, ref, "float32 pallas")
+        # "pallas": one factorization and one substitution per batch
+        assert rec["launches"] == rec["subst"] > 0, rec
 
-    res, warm, sh, rec, _ = run_path(
-        torch, chol, eaqhm_torch, sig, "float32 fused loop",
-        dtype="float32", fused_adapt_loop=True)
-    shapes["complex64"]["float32_fused"] = sh
-    check_gate(res, ref, "float32 fused loop (first call)")
-    check_gate(warm, ref, "float32 fused loop (warm call)")
-    check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
-                dtype="float32", fused_adapt_loop=True)
+        res, _, sh, rec, _ = run_path(
+            torch, chol, eaqhm_torch, sig, "float32 block_inverse (default)",
+            dtype="float32")
+        shapes["complex64"]["float32_block_inverse"] = sh
+        check_gate(res, ref, "float32 block_inverse")
 
-    lf_shapes = dsp_phase(torch, filters, vad, sig)
-    cli_phase(torch, eaqhm_torch, io, sig)
+        res, warm, sh, rec, _ = run_path(
+            torch, chol, eaqhm_torch, sig, "float64 fused loop",
+            dtype="float64", fused_adapt_loop=True)
+        shapes["complex128"]["float64_fused"] = sh
+        check_fixture(res, ref, "float64 fused loop (first call)")
+        check_fixture(warm, ref, "float64 fused loop (warm call)")
+        check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
+                    dtype="float64", fused_adapt_loop=True)
 
-    corpus = corpus_signals(sig, CORPUS_N, FS)
-    seq, seq_s, shapes["complex128"]["float64_streams"] = streams_phase(
-        torch, chol, eaqhm_torch, streams, corpus)
-    out64, shapes["complex128"]["float64_batch"], \
-        shapes["complex64"]["float32_batch"] = batch_phase(
-            torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq, seq_s)
-    batch_ms = sorted({x[1] for x in shapes["complex128"]["float64_batch"][0]})
-    kernel_phase(torch, chol, cells=[
-        (max(x[0] for x in shapes["complex128"]["float64_batch"][0]
-             if x[1] == M), M) for M in batch_ms], what="batch-M kernel")
-    shapes["complex128"]["float64_mesh"] = mesh_phase(
-        torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod, io,
-        corpus, out64)
-    determinism_phase(out64)
+        res, warm, sh, rec, _ = run_path(
+            torch, chol, eaqhm_torch, sig, "float32 fused loop",
+            dtype="float32", fused_adapt_loop=True)
+        shapes["complex64"]["float32_fused"] = sh
+        check_gate(res, ref, "float32 fused loop (first call)")
+        check_gate(warm, ref, "float32 fused loop (warm call)")
+        check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec,
+                    dtype="float32", fused_adapt_loop=True)
+
+        lf_shapes = dsp_phase(torch, filters, vad, sig)
+        cli_phase(torch, eaqhm_torch, io, sig)
+
+    if "corpus" in phases:
+        corpus = corpus_signals(sig, CORPUS_N, FS)
+        seq, seq_s, shapes["complex128"]["float64_streams"] = streams_phase(
+            torch, chol, eaqhm_torch, streams, corpus)
+        out64, shapes["complex128"]["float64_batch"], \
+            shapes["complex64"]["float32_batch"] = batch_phase(
+                torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
+                seq_s)
+        batch_ms = sorted({x[1] for x in
+                           shapes["complex128"]["float64_batch"][0]})
+        kernel_phase(torch, chol, cells=[
+            (max(x[0] for x in shapes["complex128"]["float64_batch"][0]
+                 if x[1] == M), M) for M in batch_ms], what="batch-M kernel")
+        shapes["complex128"]["float64_mesh"] = mesh_phase(
+            torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod, io,
+            corpus, out64)
+        determinism_phase(out64)
+
+    if "stress" in phases:
+        t0 = time.time()
+        by_path, cells = stress_phase(torch, chol, eaqhm_torch, engine,
+                                      benchmarks, pref)
+        keep(by_path)
+        kernel_phase(torch, chol, cells=cells, what="stress kernel")
+        log(f"stress phase: {time.time() - t0:.1f} s")
+
+    if "presets" in phases:
+        t0 = time.time()
+        keep(presets_phase(torch, chol, eaqhm_torch, filters, benchmarks,
+                           sig, pref))
+        log(f"presets phase: {time.time() - t0:.1f} s")
+
+    if "corpus64" in phases:
+        t0 = time.time()
+        keep(corpus64_phase(torch, chol, benchmarks, batch_engine))
+        log(f"corpus-64 phase: {time.time() - t0:.1f} s")
 
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
                       ("complex64", torch.complex64)):
         fused = [x for sh in shapes[cname].values() for x in sh[0]]
         subst = [x for sh in shapes[cname].values() for x in sh[1]]
+        if not fused and not subst:
+            continue
         entry = kernel_line_entry(torch, chol, dt, fused, subst)
         entry["launches_by_path"] = {k: len(f) + len(u) for k, (f, u)
                                      in shapes[cname].items()}
         kernels.append(entry)
-    kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
+    if lf_shapes is not None:
+        kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -914,5 +1216,12 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--determinism"]:
         determinism_child()
+    elif sys.argv[1:2] == ["--phases"]:
+        unknown = set(sys.argv[2:]) - set(PHASES)
+        if unknown or not sys.argv[2:]:
+            raise SystemExit(f"chip_smoke: phases are {PHASES}")
+        main(tuple(sys.argv[2:]))
+    elif sys.argv[1:]:
+        raise SystemExit(__doc__)
     else:
         main()

@@ -131,6 +131,17 @@ def segment_phase(seg_fm, ph_s, ph_e, step: int, fs: float):
     return pm - corr
 
 
+def interpolate_tracks(am_recon, fm_recon, ph_recon, step: int, fs: float,
+                       n_ti: int, length: int):
+    """Track interpolation on dense [length, K] arrays whose anchor rows
+    (i * step, i < n_ti) hold the accepted values: the anchor rows are
+    taken, then ``interpolate_tracks_anchors``.  Returns dense (am_filled,
+    fm_filled, ph_filled, fm_current), as reference functions.py:346-381."""
+    rows = torch.arange(n_ti, device=am_recon.device) * step
+    return interpolate_tracks_anchors(am_recon[rows], fm_recon[rows],
+                                      ph_recon[rows], step, fs, length)
+
+
 def interpolate_tracks_anchors(A_am, A_fm, A_ph, step: int, fs: float,
                                length: int):
     """Track interpolation from anchor values.

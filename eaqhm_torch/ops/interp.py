@@ -24,6 +24,49 @@ def lerp(xp, fp, x):
     return fp[..., i] * (1.0 - g) + fp[..., i + 1] * g
 
 
+def notaknot_M(x, y):
+    """Second derivatives M of the not-a-knot cubic spline through (x, y).
+
+    x: [m] sorted anchors (m >= 4; m == 4 is the single interpolating
+    cubic, as scipy's); y: [..., m] batched values.  Returns M: [..., m].
+    The tridiagonal system of the interior M_1..M_{m-2}, with the not-a-knot
+    conditions eliminated into its first and last rows, is solved by a
+    Thomas sweep over the anchors (vectorized over the batch); M_0 and
+    M_{m-1} follow by linear extrapolation.
+    """
+    h = torch.diff(x)                                    # [m-1]
+    dy = torch.diff(y, dim=-1) / h                       # [..., m-1]
+    d = 6.0 * (dy[..., 1:] - dy[..., :-1])               # [..., m-2]
+    n = x.shape[-1] - 2
+    sub = h[:-1].clone()
+    diag = 2.0 * (h[:-1] + h[1:])
+    sup = h[1:].clone()
+    h0, h1, hm2, hm3 = h[0], h[1], h[-1], h[-2]
+    diag[0] = h0 * (h0 + h1) / h1 + 2.0 * (h0 + h1)
+    sup[0] = h1 - h0 * h0 / h1
+    diag[-1] = 2.0 * (hm3 + hm2) + hm2 * (hm3 + hm2) / hm3
+    sub[-1] = hm3 - hm2 * hm2 / hm3
+    cp, dp = [], []
+    cp_prev = torch.zeros((), dtype=d.dtype, device=d.device)
+    dp_prev = torch.zeros_like(d[..., 0])
+    for i in range(n):
+        a_i = sub[i] if i > 0 else torch.zeros_like(cp_prev)
+        den = diag[i] - a_i * cp_prev
+        cp_prev = sup[i] / den
+        dp_prev = (d[..., i] - a_i * dp_prev) / den
+        cp.append(cp_prev)
+        dp.append(dp_prev)
+    v = torch.zeros_like(dp_prev)
+    Mint = [None] * n
+    for i in reversed(range(n)):
+        v = dp[i] - cp[i] * v
+        Mint[i] = v
+    Mint = torch.stack(Mint, dim=-1)                     # M_1..M_{m-2}
+    M0 = ((h0 + h1) * Mint[..., 0] - h0 * Mint[..., 1]) / h1
+    Mm1 = ((hm3 + hm2) * Mint[..., -1] - hm2 * Mint[..., -2]) / hm3
+    return torch.cat([M0[..., None], Mint, Mm1[..., None]], dim=-1)
+
+
 def spline_eval(x, y, M, q):
     """Evaluate the M-form cubic spline at queries q (extrapolates ends).
 
@@ -36,6 +79,12 @@ def spline_eval(x, y, M, q):
     return (A * y[..., i] + B * y[..., i + 1]
             + ((A ** 3 - A) * M[..., i] + (B ** 3 - B) * M[..., i + 1])
             * (h * h) / 6.0)
+
+
+def notaknot_interp(x, y, q):
+    """``interp1d(x, y, kind=3, fill_value='extrapolate')(q)``: the
+    not-a-knot spline through (x, y) at q.  x: [m]; y: [..., m]; q: [qn]."""
+    return spline_eval(x, y, notaknot_M(x, y), q)
 
 
 def cubic4_eval(x4, y4, q):

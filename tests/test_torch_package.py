@@ -54,6 +54,7 @@ def test_import_leaves_jax_out():
     matplotlib (the card has none; plots import it when called)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import eaqhm_torch, eaqhm_torch.models.engine, "
+            "eaqhm_torch.benchmarks, "
             "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol, "
             "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
             "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "

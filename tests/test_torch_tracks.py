@@ -136,3 +136,43 @@ def test_segment_phase_matches_captured_reference_calls(golden, j):
     got = torch.cat([got, seg[-1, -1:]]).numpy()
     assert got.shape == out.shape
     np.testing.assert_allclose(got, out, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("m", [4, 6, 100])
+def test_notaknot_interp_matches_jax_and_interp1d(m):
+    """ops.interp.notaknot_M / notaknot_interp on sorted nonuniform anchors
+    (tests/test_ops.py's case), extrapolating past both ends: against the
+    JAX package and scipy's interp1d(kind=3)."""
+    from scipy.interpolate import interp1d
+    rng = np.random.default_rng(40 + m)
+    x = np.sort(rng.uniform(0, 100, size=m))
+    y = rng.normal(size=(3, m))
+    q = rng.uniform(x[0] - 5, x[-1] + 5, size=50)
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+    _close(ti.notaknot_M(xt, yt), ji.notaknot_M(jnp.asarray(x),
+                                                jnp.asarray(y)))
+    got = ti.notaknot_interp(xt, yt, torch.as_tensor(q))
+    _close(got, ji.notaknot_interp(jnp.asarray(x), jnp.asarray(y),
+                                   jnp.asarray(q)))
+    ref = interp1d(x, y, kind=3, axis=-1, fill_value="extrapolate")(q)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-9)
+
+
+def test_interpolate_tracks_matches_jax():
+    """models.tracks.interpolate_tracks on dense [length, K] inputs with
+    the anchors at rows i * step (zeros elsewhere) against the JAX
+    package's."""
+    am, fm, ph = _anchors(5, n_ti=80, K=4)
+    n_ti = am.shape[0]
+    length = (n_ti - 1) * STEP + 1 + 20
+    dense = []
+    for a in (am, fm, ph):
+        d = np.zeros((length, a.shape[1]))
+        d[np.arange(n_ti) * STEP] = a
+        dense.append(d)
+    jr = jt.interpolate_tracks(*[jnp.asarray(d) for d in dense], STEP, FS,
+                               n_ti, length)
+    tr = tt.interpolate_tracks(*[torch.as_tensor(d) for d in dense], STEP,
+                               FS, n_ti, length)
+    for a, b in zip(tr, jr):
+        _close(a, b)

@@ -9,9 +9,12 @@ events, warm, mean of 5) and the cycles per block of each phase of a
 block's timeline (thread 0's clock64 at each barrier, waits included):
 load, diagonal block, panel rows, trailing update, panel staging (global
 path), backward substitution, output.  The card's name and power limit and
-its SM clock under load go beside them; the JSON goes to --out.
+its SM clock under load go beside them; the JSON goes to --out.  --shapes
+replaces the default cells, e.g. the stress configuration's batches
+(c128:384x386 c128:128x514 c64:768x386 c64:384x514).
 
     python3 tools/bench_chol_phases.py [--out chiprun_out/chol_phases.json]
+                                       [--shapes c128:BxM c64:BxM ...]
 """
 import argparse
 import ctypes
@@ -69,17 +72,27 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "chol_phases.json"))
+    ap.add_argument("--shapes", nargs="+", default=None,
+                    help="cells as c64:BxM or c128:BxM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_chol_phases: no CUDA device")
+    shapes = SHAPES
+    if args.shapes:
+        shapes = {torch.complex64: [], torch.complex128: []}
+        for cell in args.shapes:
+            t, bm = cell.split(":")
+            B, M = (int(v) for v in bm.split("x"))
+            shapes[{"c64": torch.complex64,
+                    "c128": torch.complex128}[t]].append((B, M))
     lib = build.load("chol_solve", ("CHOL_PHASE_CLOCKS",))
     clk = (ctypes.c_ulonglong * 8)()
     rows = []
-    for dt, shapes in SHAPES.items():
+    for dt, cells in shapes.items():
         cname = str(dt).split(".")[-1]
         sym = getattr(lib, "chol_factor_solve_" + cname.replace(
             "complex", "c"))
-        for B, M in shapes:
+        for B, M in cells:
             R, b = hpd(B, M, dt)
             path = chol.path_for(dt, M)
             x = torch.empty_like(b)

@@ -24,7 +24,24 @@ Cases (inputs made here with numpy from a seed, stored in the file):
   four adaptations cheap);
 - batch/: eaqhm_tpu.parallel.batch_engine.analyze_batch (mesh=None) on the
   two 9,601-sample harmonic utterances of tests/test_batch_engine.py (f0
-  205 and 230 Hz, partials=10, max_adaptations=3, float64).
+  205 and 230 Hz, partials=10, max_adaptations=3, float64);
+- stress/: the stress slice, samples 32,000-40,000 of the JAX benchmark's
+  config-4 signal (eaqhm_tpu/benchmarks.py:177-183, captured from
+  bench_config4 itself; f0 below 81.25 Hz there, so every frame lies in
+  the Kc = 128 tier, M = 514), male preset, float64, max_adaptations=2:
+  the slice, its tier tensors, the adaptation-0 fit of the tier's first 8
+  frames (rhs, dinv, the Gram's diagonal and its products with 4 seeded
+  vectors, since the [8, 514, 514] Gram itself is 34 MB, and the
+  solve_gram solution) and eaqhm_tpu.analyze's srer, s_recon and det_ak
+  (~3 min on the CPU);
+- presets/<gender>/: eaqhm_tpu.analyze on `s_recon` of
+  tests/golden/sa19_golden.npz (the reference's SA19 resynthesis) under the
+  JAX benchmark's config 2 (eaqhm_tpu/benchmarks.py:71-85: fc=30,
+  full_waveform=True) for the female, male and child presets, float64:
+  srer, s_recon and det_ak; and presets/highpassed, the 30 Hz high-passed
+  resynthesis those runs analyzed (eaqhm_tpu/models/engine.py:690-695:
+  scipy's filtfilt on the host, whose output moves with the scipy version
+  by ~1e-5, so a machine with another scipy can feed the recorded one).
 
     JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py [--cases ...]
 
@@ -42,10 +59,13 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
+import time  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from eaqhm_tpu import benchmarks  # noqa: E402
 from eaqhm_tpu.config import EaqhmConfig  # noqa: E402
 from eaqhm_tpu.models import engine  # noqa: E402
 from eaqhm_tpu.ops import solver  # noqa: E402
@@ -93,8 +113,12 @@ OPTION_CASES = {
 }
 BATCH_CONFIG = dict(gender="female", partials=10, max_adaptations=3,
                     dtype="float64")
+STRESS_SLICE = (32000, 40000)
+STRESS_FIT_FRAMES = 8
+STRESS_PROBES = 4
+PRESETS = ("female", "male", "child")
 CASES = ("engine", "chol", "pallas_f64", "block_inverse", "engine_options",
-         "batch")
+         "batch", "stress", "presets")
 RESULT_FIELDS = ("srer", "s_recon", "det_ti", "det_is_speech",
                  "det_is_voiced", "det_a0", "det_ak", "det_frange", "det_pk",
                  "f0_grid")
@@ -148,12 +172,7 @@ def engine_cases(out):
         out[p + "signal"] = s
         out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
         No, tiers = tier_tensors(s, cfg)
-        out[p + "No"] = No
-        out[p + "n_tiers"] = len(tiers)
-        for i, (idx, c, f0, K, wl, W, Kc) in enumerate(tiers):
-            for key, val in (("idx", idx), ("centers", c), ("f0", f0),
-                             ("K", K), ("wl", wl), ("W", W), ("Kc", Kc)):
-                out[f"{p}tier{i}/{key}"] = val
+        write_tiers(out, p, No, tiers)
         res = engine.analyze(s, FS, cfg)
         for f in RESULT_FIELDS:
             out[p + f] = np.asarray(getattr(res, f))
@@ -259,6 +278,98 @@ def batch_cases(out):
     print("batch srer", res.srer)
 
 
+def jax_stress_signal():
+    """The config-4 signal and config as eaqhm_tpu.benchmarks.bench_config4
+    builds them (its analyze call intercepted)."""
+    got = {}
+
+    def capture(s, fs, cfg, repeats=3):
+        got.update(s=s, fs=fs, cfg=cfg)
+        raise _Stop()
+
+    orig = benchmarks._timed_analyze
+    benchmarks._timed_analyze = capture
+    try:
+        benchmarks.bench_config4()
+    except _Stop:
+        pass
+    finally:
+        benchmarks._timed_analyze = orig
+    return got["s"], got["fs"], got["cfg"]
+
+
+def write_tiers(out, p, No, tiers):
+    out[p + "No"] = No
+    out[p + "n_tiers"] = len(tiers)
+    for i, (idx, c, f0, K, wl, W, Kc) in enumerate(tiers):
+        for key, val in (("idx", idx), ("centers", c), ("f0", f0),
+                         ("K", K), ("wl", wl), ("W", W), ("Kc", Kc)):
+            out[f"{p}tier{i}/{key}"] = val
+
+
+def stress_cases(out):
+    full, fs, cfg4 = jax_stress_signal()
+    assert fs == FS and len(full) == 60 * FS
+    a, b = STRESS_SLICE
+    s = np.asarray(full[a:b], np.float64)
+    cfg = dataclasses.replace(cfg4, max_adaptations=2, dtype="float64")
+    p = "stress/"
+    out[p + "signal"] = s
+    out[p + "slice"] = np.asarray(STRESS_SLICE)
+    out[p + "config4"] = json.dumps(dataclasses.asdict(cfg4))
+    out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
+    No, tiers = tier_tensors(s, cfg)
+    write_tiers(out, p, No, tiers)
+    # adaptation-0 fit of the first frames of tier 0, windows gathered from
+    # the signal padded to its length page as the engine does
+    idx, c, f0, K, wl, W, Kc = tiers[0]
+    n = STRESS_FIT_FRAMES
+    Lpad = -(-len(s) // 4096) * 4096
+    s_pad = np.pad(s, (0, Lpad - len(s)))
+    o = np.arange(-W, W + 1)
+    rows = np.clip(c[:n, None] + o[None, :], 0, Lpad - 1)
+    R, rhs, dinv = solver.iqhm_gram(
+        jnp.asarray(s_pad[rows]), jnp.asarray(o),
+        jnp.asarray(np.maximum(wl[:n], 1)), jnp.asarray(f0[:n]),
+        jnp.asarray(K[:n]), float(FS), int(Kc), dtype=jnp.float64)
+    x = solver.solve_gram(R, rhs, jnp.float64)
+    M = R.shape[-1]
+    rng = np.random.default_rng(514)
+    v = (rng.normal(size=(M, STRESS_PROBES))
+         + 1j * rng.normal(size=(M, STRESS_PROBES)))
+    out[p + "fit/probes"] = v
+    out[p + "fit/R_diag"] = np.asarray(jnp.diagonal(R, axis1=-2, axis2=-1))
+    out[p + "fit/R_probes"] = np.asarray(R) @ v
+    out[p + "fit/rhs"] = np.asarray(rhs)
+    out[p + "fit/dinv"] = np.asarray(dinv)
+    out[p + "fit/x"] = np.asarray(x)
+    t0 = time.time()
+    res = engine.analyze(s, FS, cfg)
+    print(f"stress slice: {time.time() - t0:.1f} s, srer {res.srer}, tiers",
+          [(len(t[0]), t[5], t[6]) for t in tiers])
+    for f in ("srer", "s_recon", "det_ak"):
+        out[p + f] = np.asarray(getattr(res, f))
+
+
+def preset_cases(out):
+    from scipy.signal import filtfilt
+    from eaqhm_tpu.ops import filters
+    s = np.load(os.path.join(os.path.dirname(OUT),
+                             "sa19_golden.npz"))["s_recon"]
+    b, a, _ = filters.design_ellip(FS, 30.0, "highpass")
+    out["presets/highpassed"] = filtfilt(b, a, s)
+    for gender in PRESETS:
+        cfg = EaqhmConfig(gender=gender, fc=30.0, full_waveform=True,
+                          dtype="float64")
+        t0 = time.time()
+        res = engine.analyze(s, FS, cfg)
+        print(f"preset {gender}: {time.time() - t0:.1f} s, srer {res.srer}")
+        p = f"presets/{gender}/"
+        out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
+        for f in ("srer", "s_recon", "det_ak"):
+            out[p + f] = np.asarray(getattr(res, f))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
@@ -273,7 +384,8 @@ def main():
          "pallas_f64": pallas_f64_cases,
          "block_inverse": block_inverse_cases,
          "engine_options": engine_option_cases,
-         "batch": batch_cases}[case](out)
+         "batch": batch_cases, "stress": stress_cases,
+         "presets": preset_cases}[case](out)
     np.savez_compressed(OUT, **out)
     print("wrote", OUT, os.path.getsize(OUT) // 1024, "KB")
 

@@ -12,10 +12,13 @@ finite, and whether the gate sent it to the ridged rerun.  A batch is
 "diverged" when its relative error exceeds 1e-2; the gate belongs between
 the largest ratio of a healthy batch and the smallest of a diverged one.
 Each preset's float64 trajectory (solve "cholesky") is printed beside the
-float32 one.
+float32 one.  With --signal stress the input is the JAX benchmark's config-4
+signal (eaqhm_torch.benchmarks.stress_signal, male preset; tiers M = 386
+and 514), cut to --seconds when given.
 
     python3 tools/torch_solver_residuals.py [--genders female male]
-        [--device cuda] [--seconds S] [--out chiprun_out/solver_resid.json]
+        [--signal sa19|stress] [--device cuda] [--seconds S]
+        [--out OUT.json]
 """
 import argparse
 import json
@@ -28,6 +31,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import eaqhm_torch  # noqa: E402
+from eaqhm_torch import benchmarks  # noqa: E402
 from eaqhm_torch.models import engine  # noqa: E402
 from eaqhm_torch.ops import solver  # noqa: E402
 
@@ -46,10 +50,15 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seconds", type=float, default=None,
                     help="cut the signal (a short rehearsal on the CPU)")
+    ap.add_argument("--signal", default="sa19", choices=["sa19", "stress"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    s = np.load(os.path.join(ROOT, "tests", "golden",
-                             "sa19_golden.npz"))["s_recon"]
+    if args.signal == "stress":
+        s = benchmarks.stress_signal()
+        args.genders = ["male"]
+    else:
+        s = np.load(os.path.join(ROOT, "tests", "golden",
+                                 "sa19_golden.npz"))["s_recon"]
     if args.seconds:
         s = s[:int(args.seconds * 16000)]
     orig = solver.solve_gram
