@@ -8,7 +8,7 @@
    each from a thread of its own, started together); TF32 must be off.
 2. Kernel phase: each hand kernel against its plain PyTorch version on the
    card (random equilibrated HPD systems drawn on the card from a seed), in
-   both pivot rules ("guard", "nan"), on both paths (resident, global), for
+   both pivot rules ("guard", "nan"), on the paths M <= 258 takes, for
    the fused solve and the kept factor's substitution, with the tolerance
    asserted and the path and times printed.
    Non-PD phase: the "nan" rule returns NaN on exactly the systems whose
@@ -68,7 +68,20 @@
    float64 on one card (the sequential per-utterance path, JAX's rule for
    one device), then analyze_batch on the same 64 utterances (audio-s/s,
    launches, per-utterance final-SRER gaps to the sequential run).
-12. One JSON line of the kernels (each kernel at every launch the paths
+12. Wide tiers (sample rates and pitch floors whose top tier passes Kc =
+   128): the kernel at (B, M) = (64, 770), (32, 1026), (16, 1294), (8,
+   1950), (2, 6146) and (2, the smallest slab order) against its plain
+   versions in both rules (errors to 2e-5 / 1e-12), beside cuSOLVER and the
+   bound; the M = 194-514 cells timed on the global and the cluster path
+   beside the route's choice; the "nan" rule on the cluster and slab paths.
+   Then analyze on tones built as config 4's signal at other rates: 22.05
+   kHz male, 0.5 s (M = 770), float64 host loop and fused loop held to the
+   JAX fixture (wide/fs22050) as in 3, float32 default under the gate
+   against float64; 44.1 kHz male, 0.5 s, max_adaptations=2 (M = 1294) and
+   48 kHz with gender (50, 180), 0.15 s, max_adaptations=2 (M = 1950;
+   float32 "pallas"), float64 and float32 with float32 under the gate;
+   wall, peak device memory and launches per path printed.
+13. One JSON line of the kernels (each kernel at every launch the paths
    made, launches counted per entry point and per path, counts set to 0
    just before each path and read just after), the nvidia-smi line, and as
    the last line {"ok": true, "device": {...}}.
@@ -76,8 +89,8 @@
     python3 chip_smoke.py --phases stress presets    # some phases only
 
 runs the setup and the phases named (base: 2-7; corpus: 8; stress: 9;
-presets: 10; corpus64: 11) and a kernels line over them; the default is
-all of them.  Any failure raises and exits non-zero before the last line.
+presets: 10; corpus64: 11; wide: 12) and a kernels line over them; the
+default is all of them.  Any failure raises and exits non-zero before the last line.
 Without CUDA, or outside a checkout of the repository, it fails.
 """
 import contextlib
@@ -112,7 +125,7 @@ MESH_SRER_TOL_DB = 1e-8     # tests/test_batch_engine.py:55-58
 MESH_WAVE_TOL = 1e-9
 CORPUS_N = 16               # utterances of the corpus phases
 BATCH_N = 8                 # utterances of the batch phases
-PHASES = ("base", "corpus", "stress", "presets", "corpus64")
+PHASES = ("base", "corpus", "stress", "presets", "corpus64", "wide")
 STRESS_SECONDS = 60.0       # config 4's full signal
 STRESS_SLICE = (32000, 40000)
 # the JAX package's config 4 on its TPU v5e in float32 (tools/out/
@@ -194,7 +207,8 @@ KERNEL_CELLS = ((9, 37), (512, 98), (512, 130), (512, 162), (512, 194),
                 (512, 258))
 
 
-def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel"):
+def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel",
+                 tols=KERNEL_TOL, reps=5):
     """Each (dtype, B, M) cell, both pivot rules: the fused solve and the
     kept factor's substitution against the plain versions on the card;
     times of the fused solve ("nan" rule, no factor kept) and of the
@@ -203,7 +217,7 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel"):
     worst = {}
     for dt in (torch.complex64, torch.complex128):
         cname = str(dt).split(".")[-1]
-        tol = KERNEL_TOL[cname]
+        tol = tols[cname]
         for B, M in (cells[cname] if isinstance(cells, dict) else cells):
             R, b = hpd_batch(B, M, seed=M, dtype=dt, device="cuda")
             path = chol.path_for(dt, M)
@@ -219,11 +233,12 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel"):
                 assert max(errs[mode]) <= tol, (cname, B, M, mode, errs)
                 assert resid <= 10 * tol, (cname, B, M, mode, resid)
                 worst[cname] = max(worst.get(cname, 0.0), *errs[mode])
-            k_ms = cuda_ms(lambda: chol.chol_solve(R, b, mode="nan"), 5)
-            lib_ms = cuda_ms(lambda: chol.chol_solve_reference(R, b), 5)
+            k_ms = cuda_ms(lambda: chol.chol_solve(R, b, mode="nan"), reps)
+            lib_ms = cuda_ms(lambda: chol.chol_solve_reference(R, b), reps)
             bnd, by = bound_ms(*factor_cost(B, M, R.element_size(), False),
                                cname)
-            log(f"{what} chol_solve {cname} B={B} M={M} path={path}: "
+            log(f"{what} chol_solve {cname} B={B} M={M} path={path} "
+                f"cluster={chol.cluster_size(dt, M, path)}: "
                 f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bnd:.4f} ({by}) max_rel_err (solve, subst) "
                 f"guard={errs['guard'][0]:.3e},{errs['guard'][1]:.3e} "
@@ -1022,6 +1037,141 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     return {"float64_batch64": sh}
 
 
+WIDE_KERNEL_CELLS = ((64, 770), (32, 1026), (16, 1294), (8, 1950), (2, 6146))
+# PERF.md's per-M batches, timed on every path that fits them
+ROUTE_CELLS = {"complex64": ((512, 194), (512, 258), (512, 386), (256, 514)),
+               "complex128": ((512, 194), (512, 258), (256, 386),
+                              (128, 514))}
+# (name, f0 of the tone, gender, seconds, max_adaptations, float32 solve):
+# the fixture group wide/<name> holds 22.05 kHz's float64 result
+WIDE_RUNS = (("fs22050", 80.0, "male", 0.5, None, None),
+             ("fs44100", 80.0, "male", 0.5, 2, None),
+             ("fs48000", 55.0, (50.0, 180.0), 0.15, 2, "pallas"))
+
+
+def slab_order(chol, dt):
+    """The smallest order the kernel serves on its slab path."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if chol.path_for(dt, mid) == "slab":
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def route_phase(torch, chol):
+    """The M = 194-514 cells on every path that fits them (the one-block
+    global path, and the cluster path at the size the kernel routes
+    cluster orders to), beside the path the kernel takes: the timings the
+    routing table in chol_solve.cu came from, printed, not gated."""
+    for dt in (torch.complex64, torch.complex128):
+        cname = str(dt).split(".")[-1]
+        for B, M in ROUTE_CELLS[cname]:
+            R, b = hpd_batch(B, M, seed=M, dtype=dt, device="cuda")
+            xr = chol.chol_solve_reference(R, b)
+            ms = {}
+            for path in ("global", "cluster"):
+                x = chol.chol_solve(R, b, path=path)
+                assert rel_err(x, xr) <= KERNEL_TOL[cname], (cname, M, path)
+                ms[path] = cuda_ms(lambda: chol.chol_solve(R, b, path=path),
+                                   5)
+            log(f"route {cname} B={B} M={M}: routed to "
+                f"{chol.path_for(dt, M)}; ms global={ms['global']:.4f} "
+                f"cluster(C={chol.cluster_size(dt, M, 'cluster')})="
+                f"{ms['cluster']:.4f}")
+
+
+def wide_nan_phase(torch, chol, m_slab):
+    """The "nan" rule on the cluster and slab paths: a negative diagonal
+    entry fails a factorization in the second row block (rank 1 of a
+    cluster) of system 1 and in the last row block of system 3; NaN on
+    exactly the systems cuSOLVER fails on, finite elsewhere."""
+    for dt in (torch.complex64, torch.complex128):
+        for B, M in ((4, 770), (4, 1950), (4, m_slab)):
+            R, b = hpd_batch(B, M, seed=M + 1, dtype=dt, device="cuda")
+            R[1, 17, 17] = -1.0
+            R[3, M - 5, M - 5] = -1.0
+            x, f = chol.chol_solve(R, b, mode="nan", keep_factor=True)
+            bad = torch.isnan(x).any(dim=1)
+            ref = torch.isnan(chol.chol_solve_reference(R, b)).any(dim=1)
+            log(f"wide nan rule {dt} B={B} M={M} path="
+                f"{chol.path_for(dt, M)}: NaN systems {bad.tolist()}")
+            assert bad.tolist() == [False, True, False, True] \
+                == ref.tolist()
+            diag = torch.diagonal(chol.unpack_factor(f), dim1=-2, dim2=-1)
+            assert torch.isnan(diag[[1, 3]]).all()
+            assert torch.isfinite(x[[0, 2]]).all()
+
+
+def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
+    """The widest tiers.  Kernel cells at M = 770-6146 and at the smallest
+    slab order (both rules against the plain versions, errors to 2e-5 /
+    1e-12 relative, times beside cuSOLVER and the bound), the route's
+    timings at M = 194-514, the "nan" rule on the wide paths.  Then
+    analyze on 0.5 s tones (benchmarks.stress_signal at another rate and
+    f0): 22.05 kHz male (M = 770), float64 host loop and fused loop held to
+    the fixture's wide/fs22050, float32 default under the gate; 44.1 kHz
+    male (M = 1294, max_adaptations=2) and 48 kHz gender=(50, 180)
+    (M = 1950, 0.15 s, max_adaptations=2; float32 "pallas"), float64 and
+    float32 with float32 under the gate, peak device memory printed.
+    Returns {path: launch shapes}."""
+    m_slab = slab_order(chol, torch.complex128)
+    kernel_phase(torch, chol, cells=WIDE_KERNEL_CELLS + ((2, m_slab),),
+                 what="wide kernel",
+                 tols={"complex64": 2e-5, "complex128": 1e-12}, reps=2)
+    route_phase(torch, chol)
+    wide_nan_phase(torch, chol, m_slab)
+    shapes = {}
+    for name, f0, gender, seconds, max_ad, solve32 in WIDE_RUNS:
+        fs = int(name[2:])
+        s = benchmarks.stress_signal(seconds, fs, f0)
+        kw = {} if max_ad is None else {"max_adaptations": max_ad}
+        out = {}
+        runs = [("float64", {}), ("float32", {} if solve32 is None
+                                  else {"solve_method": solve32})]
+        if name == "fs22050":          # the fixture's case: the fused loop too
+            runs.insert(1, ("float64", {"fused_adapt_loop": True}))
+        for dt, extra in runs:
+            fused = extra.get("fused_adapt_loop", False)
+            what = f"wide {name} {dt}{' fused' if fused else ''}"
+            cfg = eaqhm_torch.EaqhmConfig(gender=gender, dtype=dt, **kw,
+                                          **extra)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            chol.reset_counts()
+            t0 = time.time()
+            res = eaqhm_torch.analyze(s, fs, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            sh = chol_shapes(chol)
+            assert chol.chol_solve.plain_calls == 0
+            path = f"{dt}_wide_{name}" + ("_fused" if fused else "")
+            shapes[path] = sh
+            log(f"{what}: {seconds:g} s at {fs} Hz, wall {wall:.3f} s, peak "
+                f"device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tiers "
+                f"{res.tiers}, srer {res.srer}, launches chol_solve "
+                f"{len(sh[0])} chol_subst {len(sh[1])} (B, M, path) "
+                f"{dict(Counter(x[:3] for x in sh[0]))} fused={res.fused}")
+            assert np.all(np.isfinite(res.srer))
+            assert np.all(np.isfinite(res.s_recon))
+            out[what] = res
+        f64 = out[f"wide {name} float64"]
+        if name == "fs22050":
+            ref = fixture_group(pref, f"wide/{name}/")
+            assert np.array_equal(s, ref["signal"])
+            check_fixture(f64, ref, f"wide {name} float64 host loop")
+            fused = out[f"wide {name} float64 fused"]
+            assert fused.fused["replays"] > 0, fused.fused
+            check_fixture(fused, ref, f"wide {name} float64 fused loop")
+        check_gate(out[f"wide {name} float32"], {
+            "srer": np.asarray(f64.srer), "s_recon": f64.s_recon},
+            f"wide {name} float32 against float64")
+    return shapes
+
+
 def lfilter_line_entry(torch, filters, shapes):
     """The lfilter kernel at every launch the VAD path made, on seeded
     inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
@@ -1192,6 +1342,11 @@ def main(phases=PHASES):
         t0 = time.time()
         keep(corpus64_phase(torch, chol, benchmarks, batch_engine))
         log(f"corpus-64 phase: {time.time() - t0:.1f} s")
+
+    if "wide" in phases:
+        t0 = time.time()
+        keep(wide_phase(torch, chol, eaqhm_torch, benchmarks, pref))
+        log(f"wide phase: {time.time() - t0:.1f} s")
 
     kernels = []
     for cname, dt in (("complex128", torch.complex128),

@@ -226,12 +226,14 @@ def bench_config2(run: Run, repeats=3):
     return line, {"results": results}
 
 
-def stress_signal(seconds: float = 60.0, fs: int = FS) -> np.ndarray:
+def stress_signal(seconds: float = 60.0, fs: int = FS,
+                  f0_hz: float = 80.0) -> np.ndarray:
     """Config 4's input (eaqhm_tpu/benchmarks.py:177-183): eleven harmonics
     of f0 = 80 + 4 sin(2 pi 0.3 t) Hz with 1/k amplitudes, plus white
-    noise of std 0.01 (numpy seed 1)."""
+    noise of std 0.01 (numpy seed 1); f0_hz moves the 80 Hz centre (the
+    wide tiers' tones)."""
     t = np.arange(int(fs * seconds)) / fs
-    f0 = 80.0 + 4.0 * np.sin(2 * np.pi * 0.3 * t)
+    f0 = f0_hz + 4.0 * np.sin(2 * np.pi * 0.3 * t)
     phase = 2 * np.pi * np.cumsum(f0) / fs
     s = sum((0.25 / k) * np.sin(k * phase) for k in range(1, 12))
     s += 0.01 * np.random.default_rng(1).normal(size=len(s))

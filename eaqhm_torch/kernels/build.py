@@ -27,10 +27,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "chol_solve": ("chol_solve.cu", {
         "chol_path": [_I, _I],
+        "chol_cluster_size": [_I, _I, _I],
         "chol_prepare": [],
         "chol_phase_clocks": [_P],
-        "chol_factor_solve_c64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "chol_factor_solve_c128": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "chol_factor_solve_c64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P],
+        "chol_factor_solve_c128": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P],
         "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
         "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
     }),

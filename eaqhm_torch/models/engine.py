@@ -38,7 +38,8 @@ PAGE = 4096              # signal-length quantum of quantize_geometry
 # Harmonic tier lattice of the JAX engine (engine.py:828).
 K_LATTICE = (24, 32, 40, 48, 64, 96, 128, 192, 256)
 # Working-set budget of one batched fit (basis, Grams, solver workspace):
-# frames are grouped into batches of config.chunk multiples under it.
+# frames are grouped into batches of config.chunk multiples under it, or of
+# fewer frames (at least one) where one chunk is over it.
 _BATCH_BYTES = {"cuda": 4 << 30, "cpu": 512 << 20}
 
 
@@ -230,12 +231,15 @@ def frame_geometry(f0_grid_np, vti, v_sp, v_vo, frame_step: int, s_np,
 
 def _batch_frames(chunk: int, N: int, Kc: int, cdtype, device) -> int:
     """Frames per batched fit: a multiple of chunk whose basis + Gram +
-    solver workspace fits the device's batch budget."""
+    solver workspace fits the device's batch budget; where one chunk is
+    over the budget (the widest tiers: ~363 MB a frame in complex128 at
+    Kc = 487), as many frames as fit, and at least one.  How frames are
+    batched does not change a float64 result."""
     itemsize = torch.empty((), dtype=cdtype).element_size()
     M = 2 * (2 * Kc + 1)
     per_frame = itemsize * (4 * N * (2 * Kc + 1) + 3 * M * M)
     n = _BATCH_BYTES[torch.device(device).type] // per_frame
-    return max(chunk, n // chunk * chunk)
+    return n // chunk * chunk if n >= chunk else max(1, n)
 
 
 def _loud_enough(pos):

@@ -16,11 +16,22 @@ Two pivot rules (``mode``):
 
 Bound on an H100: M^3/6 complex multiply-adds per system against M(M+1)/2
 complex reads (one triangle of R), so at the main path's M (130-194) the
-arithmetic sets the floor in both types.  The kernel keeps the triangle in
-shared memory where it fits (the "resident" path: complex64 M <= 238,
-complex128 M <= 167) and otherwise in a device-memory workspace with each
-panel staged on chip (the "global" path); blocked right-looking updates in
-register tiles (see the source note).  It takes any M and B as they are.
+arithmetic sets the floor in both types.  Blocked right-looking updates in
+register tiles (see the source note) on one of four paths, chosen from
+(type, M) by the kernel (``path_for``):
+  "resident"  the triangle in one block's shared memory (complex64
+              M <= 238, complex128 M <= 167);
+  "global"    a device-memory workspace, each panel staged in one block
+              (complex64 up to M = 706, complex128 up to M = 764);
+  "cluster"   one system over a thread-block cluster of 2-8 blocks, each
+              staging its own rows of the panel, the others read through
+              distributed shared memory (up to complex64 M = 12416,
+              complex128 M = 6656);
+  "slab"      the cluster kernel with nothing staged, for every larger M.
+Where "global" and "cluster" both fit (complex64 M <= 1529), the faster on
+an H100 serves (the routing table in the source).  The kernel takes any
+M >= 1 and any B as they are; it fails only where the caller cannot
+allocate its tensors.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version.  ``chol_solve.launches`` / ``chol_subst.launches``
@@ -44,7 +55,7 @@ from eaqhm_torch.kernels import build
 _SYMBOLS = {torch.complex64: ("chol_factor_solve_c64", "chol_subst_c64"),
             torch.complex128: ("chol_factor_solve_c128", "chol_subst_c128")}
 MODES = ("guard", "nan")
-PATHS = ("resident", "global")
+PATHS = ("resident", "global", "cluster", "slab")
 _GUARD = 1e-30
 # The counts below are shared by every thread and updated under _lock; the
 # launches recorded during a CUDA graph capture are kept per thread (_tls).
@@ -165,13 +176,20 @@ def library(device=None):
 
 
 def path_for(dtype: torch.dtype, M: int) -> str:
-    """The kernel path a system of order M takes: "resident" or "global"
-    (needs the built library: call only with CUDA tensors at hand)."""
-    p = library().chol_path(M, int(dtype == torch.complex128))
-    if p < 0:
-        raise ValueError(f"chol_solve: M={M} too large for the kernel "
-                         f"({dtype})")
-    return PATHS[p]
+    """The kernel path a system of order M >= 1 takes: one of PATHS (needs
+    the built library: call only with CUDA tensors at hand)."""
+    if M < 1:
+        raise ValueError(f"chol_solve: M={M} is not an order")
+    return PATHS[library().chol_path(M, int(dtype == torch.complex128))]
+
+
+def cluster_size(dtype: torch.dtype, M: int, path: str) -> int:
+    """The thread-block cluster size the "cluster" or "slab" path takes at
+    order M (1 on the one-block paths)."""
+    if path not in ("cluster", "slab"):
+        return 1
+    return library().chol_cluster_size(M, int(dtype == torch.complex128),
+                                       PATHS.index(path))
 
 
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
@@ -186,13 +204,18 @@ def _launch(fn_name: str, dev: torch.device, *args) -> None:
 
 
 def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
-               keep_factor: bool = False):
+               keep_factor: bool = False, path: Optional[str] = None,
+               cluster: int = 0):
     """Solve R x = rhs for a batch of HPD R: [B, M, M], rhs: [B, M].
 
     Returns x, or (x, Factor) with keep_factor (for ``chol_subst``).  On a
     CUDA tensor this launches the hand kernel once, counts it in
     ``chol_solve.launches`` and records (B, M, path, mode, keep_factor) in
     ``chol_solve.shapes``; on a CPU tensor it runs the plain version.
+    path (one of PATHS) and cluster (the cluster size of "cluster" and
+    "slab", 0 for the kernel's) take another path than ``path_for``'s, to
+    measure one against another; the kernel refuses a path whose shared
+    memory does not fit M.
     """
     _check(R, rhs)
     _check_mode(mode)
@@ -204,17 +227,18 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
         return (x, Factor(L, None)) if keep_factor else x
     B, M = rhs.shape
     x = torch.empty_like(rhs)
-    path = path_for(R.dtype, M)
+    if path is None:
+        path = path_for(R.dtype, M)
     L = d = None
-    if keep_factor or path == "global":
+    if keep_factor or path != "resident":
         L = torch.empty((B, M * (M + 1) // 2), dtype=R.dtype, device=R.device)
-    if keep_factor:
+    if keep_factor or path in ("cluster", "slab"):
         d = torch.empty((B, M), dtype=R.real.dtype, device=R.device)
     if B:
         _launch(_SYMBOLS[R.dtype][0], R.device, R.data_ptr(), rhs.data_ptr(),
                 x.data_ptr(), None if L is None else L.data_ptr(),
                 None if d is None else d.data_ptr(), B, M,
-                int(mode == "nan"))
+                int(mode == "nan"), PATHS.index(path), int(cluster))
         _count(chol_solve, (B, M, path, mode, keep_factor))
     return (x, Factor(L, d)) if keep_factor else x
 
@@ -222,9 +246,10 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
 def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
     """x = (L L^H)^-1 rhs with a factor kept by ``chol_solve``: one kernel
     launch on CUDA (counted in ``chol_subst.launches``, (B, M, path) in
-    ``chol_subst.shapes``: "resident" stages the factor in shared memory,
-    "global" reads it from device memory), the plain triangular solves on
-    the CPU."""
+    ``chol_subst.shapes`` with the factor's path: at "resident" orders the
+    kernel stages the factor in shared memory, otherwise it reads it from
+    device memory, with y in shared memory where it fits), the plain
+    triangular solves on the CPU."""
     if rhs.dtype != f.L.dtype or rhs.dim() != 2 or rhs.device != f.L.device:
         raise ValueError("chol_subst: rhs must be [B, M] of the factor's "
                          "dtype and device")

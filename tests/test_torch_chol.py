@@ -190,11 +190,129 @@ def test_cuda_nan_mode_marks_exactly_the_failed_systems():
 
 @pytest.mark.gpu
 def test_cuda_path_boundaries():
-    """The largest resident orders: the triangle, y, rd, 1 / diag and a flag
-    in 232,448 bytes of shared memory."""
+    """The largest resident orders (the triangle, y, rd, 1 / diag and a
+    flag in 232,448 bytes of shared memory), the global path's capacity
+    (the staged M x 17 panel; complex64 leaves it for the cluster path past
+    M = 706, by measurement), the cluster path's at 8 blocks (each staging
+    ceil(M / 16 / 8) 16-row slots) and the slab path past it; a path for
+    every order from 1 to 6146 in both types."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     assert chol.path_for(torch.complex64, 238) == "resident"
-    assert chol.path_for(torch.complex64, 239) == "global"
+    assert chol.path_for(torch.complex64, 239) != "resident"
     assert chol.path_for(torch.complex128, 167) == "resident"
-    assert chol.path_for(torch.complex128, 168) == "global"
+    assert chol.path_for(torch.complex128, 168) != "resident"
+    assert chol.path_for(torch.complex64, 706) == "global"     # measured
+    assert chol.path_for(torch.complex64, 707) == "cluster"
+    assert chol.path_for(torch.complex128, 764) == "global"
+    for dt, top, slab in ((torch.complex64, 1529, 12417),
+                          (torch.complex128, 764, 6657)):
+        assert chol.path_for(dt, top + 1) == "cluster"
+        assert chol.path_for(dt, slab - 1) == "cluster"
+        assert chol.path_for(dt, slab) == "slab"
+        for M in (765, 1530, 6146):
+            assert chol.path_for(dt, M) in chol.PATHS
+        assert all(chol.path_for(dt, M) in chol.PATHS
+                   for M in range(1, 6147))
+        assert chol.cluster_size(dt, slab, "slab") == 8
+    with pytest.raises(ValueError):
+        chol.path_for(torch.complex64, 0)
+
+
+def _hpd_cuda(B, M, dtype, seed):
+    """Equilibrated HPD systems built on the card (A A^H / M + I, unit
+    diagonal) from a seeded generator: numpy on the host would take minutes
+    at M = 6146."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c128 = torch.complex128
+    A = torch.randn((B, M, M), dtype=c128, generator=g, device="cuda")
+    b = torch.randn((B, M), dtype=c128, generator=g, device="cuda")
+    R = A @ A.mH / M + torch.eye(M, dtype=c128, device="cuda")
+    d = torch.diagonal(R, dim1=-2, dim2=-1).real.sqrt()
+    R = R / (d[:, :, None] * d[:, None, :]).to(c128)
+    return R.to(dtype).contiguous(), b.to(dtype).contiguous()
+
+
+def _against_plain(R, b, mode, tol, **kw):
+    x, f = chol.chol_solve(R, b, mode=mode, keep_factor=True, **kw)
+    x2 = chol.chol_solve(R, b, mode=mode, **kw)
+    xs = chol.chol_subst(f, b)
+    torch.cuda.synchronize()
+    xr = chol.chol_solve_reference(R, b, mode=mode)
+    for got in (x, x2, xs):
+        err = ((got - xr).abs().max() / xr.abs().max()).item()
+        assert err <= tol, (tuple(R.shape), mode, kw, err)
+    return f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", chol.MODES)
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-5),
+                                       (torch.complex128, 1e-12)])
+def test_cuda_wide_orders_match_plain_version(dtype, tol, mode):
+    """The orders the tier lattice reaches at 22.05-48 kHz (M = 770, 1026,
+    1294, 1950) and M = 6146, on the path the kernel routes them to: the
+    fused solve with and without the kept factor, and the substitution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for B, M in [(8, 770), (4, 1026), (4, 1294), (2, 1950), (2, 6146)]:
+        R, b = _hpd_cuda(B, M, dtype, seed=M)
+        f = _against_plain(R, b, mode, tol)
+        assert chol.chol_solve.shapes[-1][2] == chol.path_for(dtype, M)
+        if M == 1950:
+            Lr = chol.chol_factor_reference(R, mode)
+            assert (chol.unpack_factor(f) - Lr).abs().max().item() < tol * 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-5),
+                                       (torch.complex128, 1e-12)])
+def test_cuda_every_path_at_small_orders(dtype, tol):
+    """Each path asked for by name at orders where it fits, every cluster
+    size: ragged last blocks, fewer row blocks than ranks, one row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for M in (1, 5, 37, 130, 258):
+        R, b = _hpd_cuda(3, M, dtype, seed=100 + M)
+        for mode in chol.MODES:
+            _against_plain(R, b, mode, tol, path="global")
+            for c in (2, 4, 8):
+                _against_plain(R, b, mode, tol, path="cluster", cluster=c)
+                _against_plain(R, b, mode, tol, path="slab", cluster=c)
+    with pytest.raises(RuntimeError):
+        R, b = _hpd_cuda(1, 800, dtype, seed=1)
+        chol.chol_solve(R, b, path="resident")
+
+
+@pytest.mark.gpu
+def test_cuda_slab_path_past_the_cluster_capacity():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    M = next(M for M in range(6600, 6700)
+             if chol.path_for(torch.complex128, M) == "slab")
+    R, b = _hpd_cuda(2, M, torch.complex128, seed=M)
+    for mode in chol.MODES:
+        _against_plain(R, b, mode, 1e-12)
+        assert chol.chol_solve.shapes[-1][2] == "slab"
+
+
+@pytest.mark.gpu
+def test_cuda_nan_mode_marks_exactly_the_failed_systems_at_wide_orders():
+    """A negative diagonal entry fails the factorization at that column: in
+    the second row block (rank 1 of a cluster) and in the last one; the
+    kernel's "nan" rule marks exactly the systems cuSOLVER fails on, on the
+    cluster and slab paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for dt in (torch.complex64, torch.complex128):
+        for M, kw in ((1294, {}), (1950, {}), (770, {"path": "slab"})):
+            R, b = _hpd_cuda(5, M, dt, seed=M + 1)
+            R[1, 17, 17] = -1.0
+            R[3, M - 5, M - 5] = -1.0
+            x, f = chol.chol_solve(R, b, mode="nan", keep_factor=True, **kw)
+            xr = chol.chol_solve_reference(R, b, mode="nan")
+            bad = torch.isnan(x).any(dim=1)
+            assert bad.tolist() == [False, True, False, True, False]
+            assert torch.equal(bad, torch.isnan(xr).any(dim=1))
+            assert torch.isnan(f.d[[1, 3]]).all()
+            assert torch.isfinite(x[[0, 2, 4]]).all()

@@ -3,18 +3,23 @@
 Builds eaqhm_torch/kernels/csrc/chol_solve.cu a second time with
 -DCHOL_PHASE_CLOCKS (a separate library: the port's own build has no
 clocks), runs the fused factor + solve at the main path's shapes (SA19
-female tiers) and at B = 512, M = 258, and prints for each (type, B, M,
-path) the kernel time of the plain build and of the clocked build (CUDA
-events, warm, mean of 5) and the cycles per block of each phase of a
-block's timeline (thread 0's clock64 at each barrier, waits included):
-load, diagonal block, panel rows, trailing update, panel staging (global
-path), backward substitution, output.  The card's name and power limit and
-its SM clock under load go beside them; the JSON goes to --out.  --shapes
-replaces the default cells, e.g. the stress configuration's batches
-(c128:384x386 c128:128x514 c64:768x386 c64:384x514).
+female tiers), at B = 512, M = 258, at the stress widths and at the wide
+tiers' orders (M = 770-1950), and prints for each (type, B, M, path) the
+kernel time of the plain build and of the clocked build (CUDA events, warm,
+mean of 5) and the cycles per block of each phase of a block's timeline
+(thread 0's clock64 at each barrier, waits included): load, diagonal
+block, panel rows, trailing update, panel staging, backward substitution,
+output.  On the cluster and slab paths every block of a cluster counts,
+the cluster barriers fall in the phase they close (panel rows, trailing
+update), and only rank 0 runs the backward substitution and the output.
+The card's name and power limit and its SM clock under load go beside
+them; the JSON goes to --out.  --shapes replaces the default cells, e.g.
+the stress configuration's batches (c128:256x386 c128:128x514
+c64:512x386 c64:256x514); a cell may name a path and a cluster size
+(c128:128x514:global, c128:8x1950:slab:8), otherwise the kernel routes it.
 
     python3 tools/bench_chol_phases.py [--out chiprun_out/chol_phases.json]
-                                       [--shapes c128:BxM c64:BxM ...]
+                                       [--shapes c128:BxM[:path[:C]] ...]
 """
 import argparse
 import ctypes
@@ -33,9 +38,11 @@ from eaqhm_torch.ops import chol  # noqa: E402
 
 PHASES = ("load", "diagonal_block", "panel_rows", "trailing_update",
           "panel_staging", "backward_subst", "output")
-SHAPES = {torch.complex64: ((2405, 130), (1610, 162), (154, 194), (512, 258)),
+SHAPES = {torch.complex64: ((2405, 130), (1610, 162), (154, 194), (512, 258),
+                            (512, 386), (256, 514), (64, 770), (8, 1950)),
           torch.complex128: ((2304, 130), (1536, 162), (154, 194),
-                             (512, 258))}
+                             (512, 258), (256, 386), (128, 514), (64, 770),
+                             (8, 1950))}
 
 
 def hpd(B, M, dtype, seed=0):
@@ -77,14 +84,16 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_chol_phases: no CUDA device")
-    shapes = SHAPES
+    shapes = {dt: [(B, M, None, 0) for B, M in cells]
+              for dt, cells in SHAPES.items()}
     if args.shapes:
         shapes = {torch.complex64: [], torch.complex128: []}
         for cell in args.shapes:
-            t, bm = cell.split(":")
+            t, bm, *route = cell.split(":")
             B, M = (int(v) for v in bm.split("x"))
-            shapes[{"c64": torch.complex64,
-                    "c128": torch.complex128}[t]].append((B, M))
+            shapes[{"c64": torch.complex64, "c128": torch.complex128}[t]] \
+                .append((B, M, route[0] if route else None,
+                         int(route[1]) if len(route) > 1 else 0))
     lib = build.load("chol_solve", ("CHOL_PHASE_CLOCKS",))
     clk = (ctypes.c_ulonglong * 8)()
     rows = []
@@ -92,21 +101,28 @@ def main():
         cname = str(dt).split(".")[-1]
         sym = getattr(lib, "chol_factor_solve_" + cname.replace(
             "complex", "c"))
-        for B, M in cells:
+        for B, M, path, csize in cells:
             R, b = hpd(B, M, dt)
-            path = chol.path_for(dt, M)
+            path = path or chol.path_for(dt, M)
+            csize = csize or chol.cluster_size(dt, M, path)
+            if csize == 1:
+                csize = 0
             x = torch.empty_like(b)
             L = (torch.empty((B, M * (M + 1) // 2), dtype=dt, device="cuda")
-                 if path == "global" else None)
+                 if path != "resident" else None)
+            d = (torch.empty((B, M), dtype=R.real.dtype, device="cuda")
+                 if path in ("cluster", "slab") else None)
             stream = torch.cuda.current_stream().cuda_stream
 
             def clocked():
                 err = sym(R.data_ptr(), b.data_ptr(), x.data_ptr(),
-                          None if L is None else L.data_ptr(), None, B, M, 1,
-                          stream)
+                          None if L is None else L.data_ptr(),
+                          None if d is None else d.data_ptr(), B, M, 1,
+                          chol.PATHS.index(path), csize, stream)
                 assert err == 0, err
 
-            plain_ms = cuda_ms(lambda: chol.chol_solve(R, b))
+            plain_ms = cuda_ms(lambda: chol.chol_solve(R, b, path=path,
+                                                       cluster=csize))
             clocked()
             torch.cuda.synchronize()
             assert lib.chol_phase_clocks(clk) == 0       # zero the counters
@@ -119,6 +135,7 @@ def main():
             xr = chol.chol_solve_reference(R, b)
             err = ((x - xr).abs().max() / xr.abs().max()).item()
             row = {"dtype": cname, "B": B, "M": M, "path": path,
+                   "cluster": csize or 1,
                    "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,
                    "sm_clock_under_load": sm_clock,
                    "cycles_per_block": cyc,

@@ -41,7 +41,19 @@ Cases (inputs made here with numpy from a seed, stored in the file):
   srer, s_recon and det_ak; and presets/highpassed, the 30 Hz high-passed
   resynthesis those runs analyzed (eaqhm_tpu/models/engine.py:690-695:
   scipy's filtfilt on the host, whose output moves with the scipy version
-  by ~1e-5, so a machine with another scipy can feed the recorded one).
+  by ~1e-5, so a machine with another scipy can feed the recorded one);
+- wide/<case>/: 0.5 s tones built as config 4's signal (eleven harmonics of
+  f0 + 4 sin(2 pi 0.3 t) Hz, 1/k amplitudes, noise of std 0.01, numpy seed
+  1) at the sample rates whose top tier passes Kc = 128: 22.05 kHz and
+  44.1 kHz at f0 = 80 Hz with the male preset (Kc = 192 and 323: M = 770
+  and 1294), 48 kHz at f0 = 55 Hz with gender=(50, 180) (Kc = 487: M =
+  1950); per case the tier tensors, the adaptation-0 fit of the top tier's
+  first frames (rhs, dinv, the Gram's diagonal and its products with 4
+  seeded vectors, and solve_gram's float64 solution); for 22.05 kHz also
+  eaqhm_tpu.analyze's srer, s_recon and det_ak in float64 (~5 min).  JAX's
+  float32 "pallas" solve is not recorded at these orders: its Pallas kernel
+  in interpret mode compiles for 14 min at M = 770 and 48 min at M = 1294
+  on the CPU, with 24-34 GB of host memory.
 
     JAX_PLATFORMS=cpu python tools/make_torch_parity_ref.py [--cases ...]
 
@@ -117,8 +129,14 @@ STRESS_SLICE = (32000, 40000)
 STRESS_FIT_FRAMES = 8
 STRESS_PROBES = 4
 PRESETS = ("female", "male", "child")
+WIDE_CASES = {   # name: (fs, f0, gender, top-tier frames fitted)
+    "fs22050": (22050, 80.0, "male", 4),
+    "fs44100": (44100, 80.0, "male", 3),
+    "fs48000": (48000, 55.0, (50.0, 180.0), 2),
+}
+WIDE_SECONDS = 0.5
 CASES = ("engine", "chol", "pallas_f64", "block_inverse", "engine_options",
-         "batch", "stress", "presets")
+         "batch", "stress", "presets", "wide")
 RESULT_FIELDS = ("srer", "s_recon", "det_ti", "det_is_speech",
                  "det_is_voiced", "det_a0", "det_ak", "det_frange", "det_pk",
                  "f0_grid")
@@ -128,7 +146,7 @@ class _Stop(Exception):
     pass
 
 
-def tier_tensors(s, cfg):
+def tier_tensors(s, cfg, fs=FS):
     """The tier tensors eaqhm_tpu.analyze builds, captured at its first
     device call: per tier (idx, centers, f0, K, wl) without the capacity
     padding, and (W, Kc)."""
@@ -139,7 +157,7 @@ def tier_tensors(s, cfg):
 
     engine._adapt0_full = stop
     try:
-        engine.analyze(s, FS, cfg)
+        engine.analyze(s, fs, cfg)
     except _Stop as e:
         args, kw = e.args
     finally:
@@ -370,6 +388,64 @@ def preset_cases(out):
             out[p + f] = np.asarray(getattr(res, f))
 
 
+def wide_signal(fs, f0, seconds=WIDE_SECONDS):
+    """Config 4's signal construction (eaqhm_tpu/benchmarks.py:177-183) at
+    another sample rate and f0."""
+    t = np.arange(int(fs * seconds)) / fs
+    f = f0 + 4.0 * np.sin(2 * np.pi * 0.3 * t)
+    phase = 2 * np.pi * np.cumsum(f) / fs
+    s = sum((0.25 / k) * np.sin(k * phase) for k in range(1, 12))
+    return s + 0.01 * np.random.default_rng(1).normal(size=len(s))
+
+
+def fit_top_tier(out, p, s, fs, tiers, n):
+    """Adaptation-0 fit of the first n frames of the top tier, as
+    stress_cases does for its one tier."""
+    idx, c, f0, K, wl, W, Kc = tiers[-1]
+    Lpad = -(-len(s) // 4096) * 4096
+    s_pad = np.pad(s, (0, Lpad - len(s)))
+    o = np.arange(-W, W + 1)
+    rows = np.clip(c[:n, None] + o[None, :], 0, Lpad - 1)
+    R, rhs, dinv = solver.iqhm_gram(
+        jnp.asarray(s_pad[rows]), jnp.asarray(o),
+        jnp.asarray(np.maximum(wl[:n], 1)), jnp.asarray(f0[:n]),
+        jnp.asarray(K[:n]), float(fs), int(Kc), dtype=jnp.float64)
+    x = solver.solve_gram(R, rhs, jnp.float64)
+    M = R.shape[-1]
+    rng = np.random.default_rng(M)
+    v = (rng.normal(size=(M, STRESS_PROBES))
+         + 1j * rng.normal(size=(M, STRESS_PROBES)))
+    out[p + "fit/n"] = n
+    out[p + "fit/probes"] = v
+    out[p + "fit/R_diag"] = np.asarray(jnp.diagonal(R, axis1=-2, axis2=-1))
+    out[p + "fit/R_probes"] = np.asarray(R) @ v
+    out[p + "fit/rhs"] = np.asarray(rhs)
+    out[p + "fit/dinv"] = np.asarray(dinv)
+    out[p + "fit/x"] = np.asarray(x)
+
+
+def wide_cases(out):
+    for name, (fs, f0, gender, n) in WIDE_CASES.items():
+        p = f"wide/{name}/"
+        s = wide_signal(fs, f0)
+        cfg = EaqhmConfig(gender=gender, dtype="float64")
+        out[p + "signal"] = s
+        out[p + "fs"] = fs
+        out[p + "config"] = json.dumps(dataclasses.asdict(cfg))
+        No, tiers = tier_tensors(s, cfg, fs)
+        print(f"{p}: tiers", [(len(t[0]), t[5], t[6]) for t in tiers],
+              flush=True)
+        write_tiers(out, p, No, tiers)
+        fit_top_tier(out, p, s, fs, tiers, n)
+        if fs == 22050:
+            t0 = time.time()
+            res = engine.analyze(s, fs, cfg)
+            print(f"{p}: analyze {time.time() - t0:.1f} s, srer {res.srer}",
+                  flush=True)
+            for f in ("srer", "s_recon", "det_ak"):
+                out[p + f] = np.asarray(getattr(res, f))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
@@ -385,7 +461,7 @@ def main():
          "block_inverse": block_inverse_cases,
          "engine_options": engine_option_cases,
          "batch": batch_cases, "stress": stress_cases,
-         "presets": preset_cases}[case](out)
+         "presets": preset_cases, "wide": wide_cases}[case](out)
     np.savez_compressed(OUT, **out)
     print("wrote", OUT, os.path.getsize(OUT) // 1024, "KB")
 
