@@ -117,20 +117,24 @@ class Run:
 
 
 class Launches:
-    """The Cholesky kernel's counts summed over the timed calls."""
+    """The Cholesky and block-inverse kernels' counts summed over the timed
+    calls."""
 
     def __init__(self):
-        self.counts = {"chol_solve": {"launches": 0, "plain_calls": 0},
-                       "chol_subst": {"launches": 0, "plain_calls": 0}}
+        self.counts = {name: {"launches": 0, "plain_calls": 0}
+                       for name in ("chol_solve", "chol_subst",
+                                    "block_inverse")}
 
     def __call__(self, fn, *args, **kw):
         """fn(*args, **kw) with the counts set to 0 before it and added in
         after it."""
-        from eaqhm_torch.ops import chol
+        from eaqhm_torch.ops import block_inverse, chol
         chol.reset_counts()
+        block_inverse.reset_counts()
         out = fn(*args, **kw)
         for name in self.counts:
-            f = getattr(chol, name)
+            f = (block_inverse.block_inverse_solve if name == "block_inverse"
+                 else getattr(chol, name))
             self.counts[name]["launches"] += f.launches
             self.counts[name]["plain_calls"] += f.plain_calls
         return out

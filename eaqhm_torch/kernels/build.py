@@ -24,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # library name -> (source file, {symbol: argtypes})
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_D = ctypes.c_double
 KERNELS = {
     "chol_solve": ("chol_solve.cu", {
         "chol_path": [_I, _I],
@@ -36,6 +37,17 @@ KERNELS = {
                                    _P],
         "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
         "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
+    }),
+    "block_inverse": ("block_inverse.cu", {
+        "bi_prepare": [],
+        "bi_path": [_I, _I],
+        "bi_subtree_max": [_I],
+        "bi_solve_resident_c64": [_P] * 6 + [_I, _I, _D, _P],
+        "bi_solve_resident_c128": [_P] * 6 + [_I, _I, _D, _P],
+        "bi_invert_c64": [_P, _P, _L, _I, _I, _I, _P],
+        "bi_invert_c128": [_P, _P, _L, _I, _I, _I, _P],
+        "bi_refine_c64": [_P] * 8 + [_I, _I, _D, _P],
+        "bi_refine_c128": [_P] * 8 + [_I, _I, _D, _P],
     }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],

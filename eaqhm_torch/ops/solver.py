@@ -26,16 +26,11 @@ import math
 import torch
 
 from eaqhm_torch.ops import scan
+from eaqhm_torch.ops.block_inverse import (  # noqa: F401  (re-exported)
+    block_inverse_solve, gj_inverse, hpd_block_inverse)
 from eaqhm_torch.ops.chol import chol_solve, chol_subst
 
 _RIDGE = 1e-5
-_REFINE = 2        # residual refinements of the block-inverse solve
-# float32 block inverse: a batch whose returned solution leaves a residual
-# above this share of the right-hand side (infinity norms, any system)
-# reruns ridged.  The readings that place it are in PERF.md
-# (tools/torch_solver_residuals.py).
-_RESID_GATE = 1e-3
-_GJ_BASE = 16      # Gauss-Jordan leaf size of the block recursion
 
 
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -110,66 +105,6 @@ def _refined_solve(R, Rf, rhs, mode):
     return x + chol_subst(f, r).to(R.dtype)
 
 
-def gj_inverse(R):
-    """Batched explicit inverse of small HPD blocks by unrolled Gauss-Jordan
-    elimination with no pivoting (stable for equilibrated positive-definite
-    blocks).  R: [B, m, m]; returns [B, m, m]."""
-    B, m, _ = R.shape
-    eye = torch.eye(m, dtype=R.dtype, device=R.device).expand(B, m, m)
-    A = torch.cat([R, eye], dim=-1)                     # [B, m, 2m]
-    for j in range(m):
-        row = A[:, j, :] / A[:, j, j:j + 1]
-        A = A - A[:, :, j:j + 1] * row[:, None, :]
-        A[:, j, :] = row
-    return A[:, :, m:]
-
-
-def hpd_block_inverse(R):
-    """Batched inverse of Hermitian-positive-definite matrices by recursive
-    Schur-complement block inversion (matrix products only).  For
-    [[P, Q], [Q^H, S]] with T = P^-1 Q and Sc = S - Q^H T:
-
-        inv = [[P^-1 + T Sc^-1 T^H,  -T Sc^-1],
-               [-Sc^-1 T^H,           Sc^-1]]
-
-    Split at m = (M//2 + 7) & ~7 for M >= 32 (M//2 below), Gauss-Jordan
-    leaves of order <= 16, as the JAX package.  R: [B, M, M]."""
-    M = R.shape[-1]
-    if M <= _GJ_BASE:
-        return gj_inverse(R)
-    m = (M // 2 + 7) & ~7 if M >= 32 else M // 2
-    m = min(m, M - 1)
-    P = R[..., :m, :m]
-    Q = R[..., :m, m:]
-    S = R[..., m:, m:]
-    Pi = hpd_block_inverse(P)
-    T = torch.matmul(Pi, Q)
-    Sc = S - torch.matmul(Q.mH, T)
-    Si = hpd_block_inverse(Sc)
-    U = torch.matmul(T, Si)
-    TL = Pi + torch.matmul(U, T.mH)
-    top = torch.cat([TL, -U], dim=-1)
-    bot = torch.cat([-U.mH, Si], dim=-1)
-    return torch.cat([top, bot], dim=-2)
-
-
-def block_inverse_solve(R, rhs):
-    """x = Ri rhs with Ri the recursive block inverse, then _REFINE residual
-    refinements x += Ri (rhs - R x) (JAX solver.py:316-352)."""
-    Ri = hpd_block_inverse(R)
-    x = _mv(Ri, rhs)
-    for _ in range(_REFINE):
-        x = x + _mv(Ri, rhs - _mv(R, x))
-    return x
-
-
-def residual_ok(R, rhs, x):
-    """0-d bool tensor: every system's residual ||rhs - R x||inf is within
-    _RESID_GATE ||rhs||inf (NaN compares False)."""
-    r = rhs - _mv(R, x)
-    return (r.abs().amax(-1) <= _RESID_GATE * rhs.abs().amax(-1)).all()
-
-
 def _ridge_rerun(R, rhs):
     """Cholesky of R + 1e-5 I plus one refinement against R (the float32
     fallback of solver.py:379-387, jnp.linalg.cholesky there: the "nan"
@@ -178,16 +113,13 @@ def _ridge_rerun(R, rhs):
     return _refined_solve(R, (R + _RIDGE * eye).contiguous(), rhs, "nan")
 
 
-def _finite_or_ridged(R, rhs, x, ok=None):
-    """The float32 fallback: x when every entry is finite (and ``ok``, a
-    0-d bool tensor, holds), else the whole batch rerun ridged
-    (solver.py:351-352,379-390).  Under CUDA graph capture the host cannot
-    branch, so the rerun is always computed and the batch selected on the
-    device with torch.where on the flag: the function JAX's lax.cond
-    computes."""
-    good = torch.isfinite(torch.view_as_real(x)).all()
-    if ok is not None:
-        good = good & ok
+def _finite_or_ridged(R, rhs, x, good):
+    """The float32 fallback: x when ``good`` (a 0-d bool tensor: every entry
+    finite, and for the block inverse every residual within the gate)
+    holds, else the whole batch rerun ridged (solver.py:351-352,379-390).
+    Under CUDA graph capture the host cannot branch, so the rerun is always
+    computed and the batch selected on the device with torch.where on the
+    flag: the function JAX's lax.cond computes."""
     if x.is_cuda and torch.cuda.is_current_stream_capturing():
         return torch.where(good, x, _ridge_rerun(R, rhs))
     return x if bool(good) else _ridge_rerun(R, rhs)
@@ -203,10 +135,10 @@ def solve_gram(R, rhs, rdtype, method=None):
         and two residual refinements (solver.py:316-352), full float32
         products (TF32 off); for float32 the ridged rerun (the CUDA kernel,
         "nan" rule) when any entry is non-finite, as in JAX, or when the
-        returned solution's residual exceeds _RESID_GATE of the right-hand
-        side: off the TPU the float32 recursion diverges at M = 194 on
-        SA19 while staying finite (JAX on the CPU and the port on the H100
-        alike), which JAX's finite-only gate lets through;
+        returned solution's residual exceeds block_inverse.RESID_GATE of
+        the right-hand side: off the TPU the float32 recursion diverges at
+        M = 194 on SA19 while staying finite (JAX on the CPU and the port
+        on the H100 alike), which JAX's finite-only gate lets through;
       "cholesky", float64: one kernel solve, NaN on a failed pivot
         (solver.py:356-362);
       "cholesky", float32: the same, and when any entry is non-finite a
@@ -215,7 +147,9 @@ def solve_gram(R, rhs, rdtype, method=None):
         one refinement step, the residual taken in the caller's type
         (solver.py:302-315); one factorization, two substitutions.
     "cholesky" and "pallas" launch the CUDA kernel on the card (ops.chol)
-    with the pivot rule of the JAX branch they stand for.
+    with the pivot rule of the JAX branch they stand for; "block_inverse"
+    launches the block-inverse kernel (ops.block_inverse), whose outputs
+    carry the gate's inputs.
     """
     if method in (None, "auto"):
         method = default_solve_method(rdtype)
@@ -224,17 +158,17 @@ def solve_gram(R, rhs, rdtype, method=None):
     if method == "pallas":
         return _refined_solve(R, R.to(torch.complex64).contiguous(), rhs,
                               "guard")
-    ok = None
     if method == "block_inverse":
-        x = block_inverse_solve(R, rhs)
-        if rdtype != torch.float64:
-            ok = residual_ok(R, rhs, x)
-    elif method == "cholesky":
-        x = chol_solve(R, rhs, mode="nan")
-    else:
+        sol = block_inverse_solve(R, rhs)
+        if rdtype == torch.float64:
+            return sol.x
+        return _finite_or_ridged(R, rhs, sol.x, sol.ok)
+    if method != "cholesky":
         raise ValueError(f"unknown solve_method {method!r}")
+    x = chol_solve(R, rhs, mode="nan")
     if rdtype != torch.float64:
-        x = _finite_or_ridged(R, rhs, x, ok)
+        x = _finite_or_ridged(R, rhs, x,
+                              torch.isfinite(torch.view_as_real(x)).all())
     return x
 
 

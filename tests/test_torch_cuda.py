@@ -77,3 +77,41 @@ def test_cuda_fused_loop_matches_host_loop(dtype):
         np.testing.assert_allclose(res.srer, host.srer, atol=tol[0])
         np.testing.assert_allclose(res.s_recon, host.s_recon, atol=tol[1])
     engine.clear_graph_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-4),
+                                       (torch.complex128, 1e-10)])
+def test_cuda_block_inverse_matches_plain_version(dtype, tol):
+    """The block-inverse kernel against its plain version on the card, on
+    both paths (resident and hybrid orders of each type): x to the
+    tolerances of tests/test_torch_solver.py, the gate's inputs, and the
+    launches per call the wrapper counts; the batch flag cleared by a
+    non-finite system."""
+    _needs_cuda()
+    from eaqhm_torch.ops import block_inverse as bi
+    rng = np.random.default_rng(5)
+    for B, M in ((7, 37), (5, 130), (3, 258)):
+        A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
+        R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
+        d = np.sqrt(np.real(np.einsum("bii->bi", R)))
+        R = torch.as_tensor(R / (d[:, :, None] * d[:, None, :]),
+                            dtype=dtype)
+        b = torch.as_tensor(rng.normal(size=(B, M))
+                            + 1j * rng.normal(size=(B, M)), dtype=dtype)
+        n = bi.block_inverse_solve.launches
+        sol = bi.block_inverse_solve(R.cuda(), b.cuda())
+        torch.cuda.synchronize()
+        kernels = bi.launches_per_call(dtype, M) - (
+            1 if bi.path_for(dtype, M) == "resident" else 2
+            + 5 * len(bi._nodes(dtype, M)[0]))
+        assert bi.block_inverse_solve.launches == n + kernels
+        ref = bi.solve_reference(R, b)
+        err = (sol.x.cpu() - ref.x).abs().max() / ref.x.abs().max()
+        assert err <= tol, (M, err)
+        assert bool(sol.ok) and bool(sol.finite.all())
+        torch.testing.assert_close(sol.resid_ratio.cpu(), ref.resid_ratio,
+                                   rtol=0, atol=10 * tol)
+        R[1, 0, 0] = 0
+        sol = bi.block_inverse_solve(R.cuda(), b.cuda())
+        assert not bool(sol.ok) and not bool(sol.finite[1])

@@ -13,7 +13,10 @@ Cases (inputs made here with numpy from a seed, stored in the file):
   method="pallas") on equilibrated HPD complex128 systems (complex64 Pallas
   solves in interpret mode, refinement residual in complex128);
 - block_inverse/<dtype>/<B>x<M>: gj_inverse, hpd_block_inverse and
-  solve_gram(..., method="block_inverse") on equilibrated HPD systems, and
+  solve_gram(..., method="block_inverse") on equilibrated HPD systems (at
+  M >= 130 only the seed the test rebuilds R and b from with numpy,
+  hpd_block_inverse times a seeded 4-column probe, and solve_gram's x:
+  whole matrices there would grow the file by megabytes), and
   block_inverse/nonpd/<case>: float32 solve_gram(..., "block_inverse") on
   the non-PD batch of tests/test_torch_solver.py (smallest eigenvalue -3e-6:
   the inverse stays finite) and on the same batch with a zero pivot (the
@@ -116,6 +119,10 @@ ENGINE_CASES = {
 CHOL_SHAPES = ((5, 50), (3, 32), (9, 37))
 PALLAS_F64_SHAPES = ((4, 37),)
 BLOCK_INVERSE_SHAPES = ((4, 16), (4, 37), (4, 64))
+# orders of the port's kernel paths (complex64 resident up to 169 and
+# hybrid beyond; complex128 resident up to 119): recorded with a probe
+BLOCK_INVERSE_PROBED = ((4, 130), (4, 194), (3, 258), (2, 514))
+BLOCK_INVERSE_PROBES = 4
 OPTION_CASES = {
     "block_inverse": (FS, dict(gender=(150.0, 250.0), max_adaptations=3,
                                solve_method="block_inverse")),
@@ -236,6 +243,15 @@ def nonpd_batch(zero_pivot=False):
     return R.astype(np.complex64), b.astype(np.complex64)
 
 
+def block_inverse_probe(M, dtype):
+    """The [M, BLOCK_INVERSE_PROBES] probe the inverse is recorded against
+    (numpy seed M + 1)."""
+    rng = np.random.default_rng(M + 1)
+    V = (rng.normal(size=(M, BLOCK_INVERSE_PROBES))
+         + 1j * rng.normal(size=(M, BLOCK_INVERSE_PROBES)))
+    return V.astype(dtype)
+
+
 def block_inverse_cases(out):
     for name, cdt, rdt in (("float64", np.complex128, jnp.float64),
                            ("float32", np.complex64, jnp.float32)):
@@ -249,6 +265,16 @@ def block_inverse_cases(out):
                 solver.hpd_block_inverse(jnp.asarray(R)))
             out[p + "x"] = np.asarray(solver.solve_gram(
                 jnp.asarray(R), jnp.asarray(b), rdt, method="block_inverse"))
+        for B, M in BLOCK_INVERSE_PROBED:
+            R, b = hpd_systems(B, M, seed=M, dtype=cdt)
+            p = f"block_inverse/{name}/{B}x{M}/"
+            out[p + "seed"] = np.asarray(M)
+            V = block_inverse_probe(M, cdt)
+            out[p + "inv_probe"] = np.asarray(
+                solver.hpd_block_inverse(jnp.asarray(R))) @ V
+            out[p + "x"] = np.asarray(solver.solve_gram(
+                jnp.asarray(R), jnp.asarray(b), rdt, method="block_inverse"))
+            print("block_inverse", name, B, M)
     for case, zp in (("nonpd", False), ("zero_pivot", True)):
         R, b = nonpd_batch(zp)
         p = f"block_inverse/nonpd/{case}/"
