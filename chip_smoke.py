@@ -157,8 +157,19 @@ BI_TOL = {"complex64": 1e-4, "complex128": 1e-10}
 # of the sound runs on the H100 (complex64 3.6e-7 against the plain
 # version, 5.3e-7 against its own x; complex128 8.5e-16 and 1.7e-15)
 BI_RATIO_TOL = {"complex64": 4e-6, "complex128": 1e-14}
-BI_CELLS = ((512, 98), (512, 130), (512, 162), (512, 194), (512, 238),
+BI_CELLS = ((512, 98), (512, 118), (512, 119), (512, 130), (512, 162),
+            (512, 168), (512, 169), (154, 194), (512, 194), (512, 238),
             (512, 386), (256, 514), (64, 770), (16, 1294))
+# the kernel's ms at these cells before its redesign for Hopper (this
+# script's kernel phase, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): printed
+# beside each cell's ms, not a gate
+BI_BEFORE_MS = {
+    "complex64": {(512, 98): 0.438, (512, 130): 0.9794, (512, 162): 1.644,
+                  (512, 194): 1.795, (512, 238): 2.696, (512, 386): 7.381,
+                  (256, 514): 8.395, (64, 770): 8.44, (16, 1294): 15.57},
+    "complex128": {(512, 98): 0.9465, (512, 130): 1.167, (512, 162): 2.06,
+                   (512, 194): 3.119, (512, 238): 4.507, (512, 386): 10.96,
+                   (256, 514): 9.348, (64, 770): 9.319, (16, 1294): 15.75}}
 # block-inverse calls per path of the main runs: name -> (calls (B, M,
 # kernel path), kernel launches, launches in graph replays)
 BI_RUNS = {}
@@ -712,7 +723,8 @@ def bi_cost(B, M, itemsize):
     (at each level of order n, T = P^-1 Q and U = T Sc^-1 take n^3/8 each,
     the Hermitian Sc and P^-1 + U T^H n^3/16 each as one triangle; summed
     over the levels, 3n^3/8 * 4/3) and 6 M^2 for the products with Ri and
-    R, 8 real flops each."""
+    R, 8 real flops each.  The least the recursion needs: the kernel takes
+    Sc and P^-1 + U T^H in full, as JAX rounds them (2M^3/3)."""
     return (B * (M * M + 2 * M) * itemsize,
             B * 8 * (M ** 3 / 2 + 6 * M * M))
 
@@ -803,8 +815,11 @@ def bi_kernel_phase(torch, bi):
             p_ms = cuda_ms(lambda: bi.solve_reference(R, b), 1)
             l_ms = cuda_ms(lambda: bi_library(torch, R, b), 3)
             bnd, by = bound_ms(*bi_cost(B, M, R.element_size()), cname)
+            before = BI_BEFORE_MS[cname].get((B, M))
             log(f"bi kernel {cname} B={B} M={M} path={path}: kernel_ms="
-                f"{k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                f"{k_ms:.4f} (before the redesign "
+                f"{'not measured' if before is None else before}) "
+                f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={bnd:.4f} ({by}) launches/call {prof} "
                 f"(graph nodes; the wrapper's formula {want}; kernel "
                 f"launches {n_kernel}) max_rel_err={err:.3e} (asserted <= "

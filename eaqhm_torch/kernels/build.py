@@ -42,6 +42,7 @@ KERNELS = {
         "bi_prepare": [],
         "bi_path": [_I, _I],
         "bi_subtree_max": [_I],
+        "bi_phase_clocks": [_P],
         "bi_solve_resident_c64": [_P] * 6 + [_I, _I, _D, _P],
         "bi_solve_resident_c128": [_P] * 6 + [_I, _I, _D, _P],
         "bi_invert_c64": [_P, _P, _L, _I, _I, _I, _P],

@@ -14,14 +14,18 @@ RESID_GATE.
 The kernel (``kernels/csrc/block_inverse.cu``) takes one of two paths,
 chosen from (type, M) by ``path_for``:
   "resident"  one launch: one block per system builds Ri in shared memory
-              and runs the refinements and the gate (complex64 M <= 169,
-              complex128 M <= 119);
-  "hybrid"    beyond: Ri in a device-memory workspace; each subtree of the
-              recursion whose order fits one block (complex64 <= 170,
-              complex128 <= 120) is one launch of the in-place inversion
-              kernel, the levels above are batched matrix products
-              (torch.matmul, as JAX leaves them to XLA), then one launch of
-              the refinement kernel.
+              and runs the refinements and the gate (complex64 M <= 168,
+              complex128 M <= 118);
+  "hybrid"    beyond: Ri in a device-memory workspace W that is written, never
+              copied from R: each subtree of the recursion whose order fits
+              one block (complex64 <= 170, complex128 <= 120) is one launch
+              of the in-block inversion kernel, reading R down the tree's
+              left edge and W where a Schur complement was written; each
+              level above is JAX's four products through torch.matmul (as
+              JAX leaves them to XLA) and a copy of -U^H (level_cublas);
+              then one launch of the refinement kernel.
+Both paths compute each of JAX's products in full, Sc = S - Q^H T and
+P^-1 + U T^H included: 2M^3/3 complex multiply-adds per inverse.
 ``launches_per_call`` gives the CUDA launches of one call on each path
 (kernels, products, copies and the flag's fill); ``workspace_elems`` the
 complex elements per system it allocates besides its inputs and outputs.
@@ -50,7 +54,10 @@ REFINE = 2            # residual refinements
 # share of the right-hand side (infinity norms, any system) reruns ridged
 # (ops.solver); the readings that place it are in PERF.md.
 RESID_GATE = 1e-3
-_WARPS = 8            # warps of a kernel block (its reduction scratch)
+# the kernel's shared-memory layout (smem_bytes): elements past the matrix
+# that a tile may read, and the warps its reduction scratch is sized for
+_PAD = 8
+_RED_WARPS = 16
 _SYMBOLS = {torch.complex64: ("bi_solve_resident_c64", "bi_invert_c64",
                               "bi_refine_c64"),
             torch.complex128: ("bi_solve_resident_c128", "bi_invert_c128",
@@ -83,10 +90,13 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 def smem_bytes(dtype: torch.dtype, n: int, solve: bool) -> int:
     """Shared memory of one block of the resident kernel (solve) or of the
-    subtree kernel at order n (the kernel's smem_bytes)."""
+    subtree kernel at order n (the kernel's smem_bytes): the matrix at an
+    even row stride and its padding, the leaves' exchange buffers, x and the
+    residual, the reduction scratch."""
     c = _itemsize(dtype)
-    return (n * n + 2 * GJ_BASE + (2 * n if solve else 0)) * c \
-        + 2 * _WARPS * (c // 2)
+    ld = n + (n & 1)
+    return (n * ld + _PAD + 2 * (GJ_BASE + 1) + (2 * n if solve else 0)) * c \
+        + 2 * _RED_WARPS * (c // 2)
 
 
 def subtree_max(dtype: torch.dtype) -> int:
@@ -125,13 +135,15 @@ def _nodes(dtype: torch.dtype, M: int):
 
 def launches_per_call(dtype: torch.dtype, M: int) -> int:
     """CUDA launches of one call on a CUDA tensor: resident, the flag's fill
-    and the kernel; hybrid, the fill, the workspace copy, one subtree launch
-    each, five per level above (two products into place, one product, one
-    product-accumulate, one conjugate-transpose copy) and the refinement."""
+    and the kernel; hybrid, the fill, one subtree launch each, five per level
+    above (T, Sc, -U and P^-1 + U T^H through torch.matmul, the copy of
+    -U^H) and a copy of S at each level that reads R (the tree's left
+    edge), and the refinement."""
     if path_for(dtype, M) == "resident":
         return 2
     internal, subtrees = _nodes(dtype, M)
-    return 3 + len(subtrees) + 5 * len(internal)
+    return 2 + len(subtrees) + 5 * len(internal) + sum(
+        o == 0 for o, _, _ in internal)
 
 
 def workspace_elems(dtype: torch.dtype, M: int) -> int:
@@ -212,36 +224,59 @@ def solve_reference(R, rhs) -> Solved:
     return gate_inputs(R, rhs, x)
 
 
-def hybrid_inverse(W: torch.Tensor, invert_subtree) -> None:
-    """The hybrid path's recursion, in place on W [B, M, M] (a copy of R on
-    entry, Ri on return): each subtree of order <= subtree_max is
-    ``invert_subtree(W, o, n)`` (in place on W[:, o:o+n, o:o+n]); above,
-    for [[P, Q], [Q^H, S]] at (o, n) with Q^H kept in the lower left:
-    T = P^-1 Q, Sc = S - Q^H T, then -U = -T Sc^-1 into Q, P^-1 + U T^H
-    into P, -U^H into the lower left.  Every product writes into W's views
-    (row stride M) or into T."""
-    _hybrid_node(W, 0, W.shape[-1], subtree_max(W.dtype), invert_subtree)
+def hybrid_inverse(R: torch.Tensor, W: torch.Tensor, invert_subtree) -> None:
+    """The hybrid path's recursion: W [B, M, M] (any contents on entry) is
+    made the inverse of R [B, M, M], which is only read.  A node (o, n)
+    reads its blocks from its source: R down the tree's left edge, W where
+    its parent wrote a Schur complement.  Each subtree of order <=
+    subtree_max is ``invert_subtree(src, W, o, n)`` (W's block at (o, o)
+    the inverse of src's); above, for [[P, Q], [Q^H, S]] at (o, n):
+    T = P^-1 Q; ``level_cublas(0, src, W, o, n, m, T)`` writes
+    Sc = S - Q^H T into W; the right subtree (source W); -U = -T Sc^-1 into
+    W's upper right; ``level_cublas(1, src, W, o, n, m, T)`` writes
+    P^-1 + U T^H into W's upper left and -U^H into its lower left."""
+    _hybrid_node(R, W, 0, W.shape[-1], subtree_max(W.dtype), invert_subtree)
 
 
-def _hybrid_node(W, o, n, nmax, invert_subtree) -> None:
+def _hybrid_node(src, W, o, n, nmax, invert_subtree) -> None:
     # a module-level function, not a closure: a recursive closure is a
     # reference cycle that would keep W alive until the garbage collector
     # runs
     if n <= nmax:
-        invert_subtree(W, o, n)
+        invert_subtree(src, W, o, n)
         return
     m = split(n)
     P = W[:, o:o + m, o:o + m]
     Q = W[:, o:o + m, o + m:o + n]
-    L = W[:, o + m:o + n, o:o + m]
     S = W[:, o + m:o + n, o + m:o + n]
-    _hybrid_node(W, o, m, nmax, invert_subtree)
-    T = torch.matmul(P, Q)
-    S.baddbmm_(L, T, alpha=-1)
-    _hybrid_node(W, o + m, n - m, nmax, invert_subtree)
+    _hybrid_node(src, W, o, m, nmax, invert_subtree)
+    T = torch.matmul(P, src[:, o:o + m, o + m:o + n])
+    level_cublas(0, src, W, o, n, m, T)
+    _hybrid_node(W, W, o + m, n - m, nmax, invert_subtree)
     Q.baddbmm_(T, S, beta=0, alpha=-1)
-    P.baddbmm_(Q, T.mH, alpha=-1)
-    L.copy_(Q.mH)
+    level_cublas(1, src, W, o, n, m, T)
+
+
+def level_cublas(mode, src, W, o, n, m, T) -> None:
+    """One level of the hybrid path, JAX's products through
+    torch.matmul: mode 0 Sc = S - Q^H T into W (S first copied from R
+    where the level reads R), mode 1 P^-1 + U T^H = P - (-U) T^H in place
+    and -U^H into W's lower left."""
+    if mode == 0:
+        S = W[:, o + m:o + n, o + m:o + n]
+        if src is not W:
+            S.copy_(src[:, o + m:o + n, o + m:o + n])
+        S.baddbmm_(src[:, o:o + m, o + m:o + n].mH, T, alpha=-1)
+    else:
+        Q = W[:, o:o + m, o + m:o + n]
+        W[:, o:o + m, o:o + m].baddbmm_(Q, T.mH, alpha=-1)
+        W[:, o + m:o + n, o:o + m].copy_(Q.mH)
+
+
+def subtree_reference(src, W, o, n) -> None:
+    """The plain version of one subtree launch."""
+    W[:, o:o + n, o:o + n] = hpd_block_inverse(
+        src[:, o:o + n, o:o + n].clone())
 
 
 def library(device=None):
@@ -315,8 +350,8 @@ def block_inverse_solve(R: torch.Tensor, rhs: torch.Tensor) -> Solved:
                 ratio.data_ptr(), finite.data_ptr(), ok.data_ptr(), B, M,
                 RESID_GATE)
     else:
-        W = R.clone()
-        hybrid_inverse(W, _subtree_launcher(fn_inv))
+        W = torch.empty_like(R)
+        hybrid_inverse(R, W, _subtree_launcher(fn_inv))
         r = torch.empty_like(rhs)
         _launch(fn_ref, R.device, W.data_ptr(), R.data_ptr(), rhs.data_ptr(),
                 x.data_ptr(), r.data_ptr(), ratio.data_ptr(),
@@ -326,12 +361,13 @@ def block_inverse_solve(R: torch.Tensor, rhs: torch.Tensor) -> Solved:
 
 
 def _subtree_launcher(fn_name: str):
-    """invert_subtree for hybrid_inverse on a CUDA workspace: one launch of
-    the in-place subtree kernel on W[:, o:o+n, o:o+n] (row stride M)."""
-    def invert_subtree(W, o, n):
+    """invert_subtree for hybrid_inverse on CUDA tensors: one launch of the
+    subtree kernel from src's block at (o, o) into W's (row stride M)."""
+    def invert_subtree(src, W, o, n):
         B, M = W.shape[0], W.shape[-1]
-        ptr = W.data_ptr() + (o * M + o) * W.element_size()
-        _launch(fn_name, W.device, ptr, ptr, M * M, M, B, n)
+        off = (o * M + o) * W.element_size()
+        _launch(fn_name, W.device, src.data_ptr() + off, W.data_ptr() + off,
+                M * M, M, B, n)
     return invert_subtree
 
 

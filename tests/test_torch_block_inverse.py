@@ -81,32 +81,83 @@ def test_plain_version_matches_jax_at_kernel_orders(ref, dtype, B, M):
     assert chol.chol_solve.plain_calls == 0
 
 
+def _hybrid(R, sources=None):
+    """hybrid_inverse of R with the plain subtree function into a workspace
+    filled with NaN (the kernel's starts uninitialized); sources collects
+    (reads R, offset, order) of each subtree."""
+    W = torch.full_like(R, complex("nan+nanj"))
+
+    def invert(src, W, o, n):
+        if sources is not None:
+            sources.append((src is R, o, n))
+        bi.subtree_reference(src, W, o, n)
+    bi.hybrid_inverse(R, W, invert)
+    return W
+
+
 @pytest.mark.parametrize("dtype,M", [(torch.complex128, 300),
                                      (torch.complex64, 258),
                                      (torch.complex128, 514)])
 def test_hybrid_recursion_equals_plain_inverse(dtype, M):
-    """The hybrid path's recursion in place on a workspace (products into
-    its views, Q^H kept in the lower left) with plain subtrees gives the
+    """The hybrid path's recursion on a workspace that starts with anything
+    in it (each node reading its blocks from R down the tree's left edge
+    and from the workspace below a written Schur complement) with plain
+    subtrees gives the
     plain inverse: complex128 to 1e-12 relative (the same products in
-    another order), complex64 to 1e-5; each subtree is at most
-    subtree_max and the calls are those launches_per_call counts."""
+    another order), complex64 to 1e-5; R is left as it was; each subtree
+    is at most subtree_max, only the first reads R, and the calls are
+    those launches_per_call counts."""
     R, _ = _hpd(2, M, 7, np.complex64 if dtype == torch.complex64
                 else np.complex128)
-    W = R.clone()
-    orders = []
-
-    def invert(W, o, n):
-        orders.append(n)
-        W[:, o:o + n, o:o + n] = bi.hpd_block_inverse(
-            W[:, o:o + n, o:o + n].clone())
-    bi.hybrid_inverse(W, invert)
+    R0 = R.clone()
+    sources = []
+    W = _hybrid(R, sources)
     _close(W, bi.hpd_block_inverse(R),
            1e-12 if dtype == torch.complex128 else 1e-5)
+    assert torch.equal(R, R0)
+    m = bi.split(M)                 # -U^H is a copy of -U, bit for bit
+    assert torch.equal(W[:, m:, :m], W[:, :m, m:].mH)
     internal, subtrees = bi._nodes(dtype, M)
-    assert orders == [n for _, n in subtrees]
-    assert max(orders) <= bi.subtree_max(dtype) < M
+    assert [(o, n) for _, o, n in sources] == subtrees
+    assert [r for r, _, _ in sources] == [True] + [False] * (len(sources) - 1)
+    assert max(n for _, n in subtrees) <= bi.subtree_max(dtype) < M
+    left_edge = sum(o == 0 for o, _, _ in internal)
     assert bi.launches_per_call(dtype, M) == \
-        3 + len(subtrees) + 5 * len(internal)
+        2 + len(subtrees) + 5 * len(internal) + left_edge
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,M", _PROBED[1:])
+def test_hybrid_driver_matches_jax(ref, dtype, B, M):
+    """The hybrid driver with the plain subtree function (the CUDA path's
+    recursion, on the CPU) equals the plain inverse and JAX's
+    recorded inverse at the fixture's hybrid orders, to the tolerances of
+    tests/test_torch_solver.py."""
+    p = f"block_inverse/{dtype}/{B}x{M}/"
+    R, _ = _hpd(B, M, M, _CDT[dtype])
+    W = _hybrid(R)
+    tol = _BI_TOL[dtype]
+    _close(W, bi.hpd_block_inverse(R), tol)
+    _close(W.numpy() @ _probe(M, _CDT[dtype]), ref[p + "inv_probe"], tol)
+
+
+@pytest.mark.parametrize("dtype,M,launches", [
+    (torch.complex64, 130, 2), (torch.complex64, 168, 2),
+    (torch.complex64, 169, 3), (torch.complex64, 194, 10),
+    (torch.complex64, 386, 23), (torch.complex64, 514, 23),
+    (torch.complex64, 770, 48), (torch.complex64, 1294, 48),
+    (torch.complex128, 118, 2), (torch.complex128, 119, 3),
+    (torch.complex128, 162, 10), (torch.complex128, 386, 23),
+    (torch.complex128, 514, 48), (torch.complex128, 1294, 97)])
+def test_launches_per_call_by_hand(dtype, M, launches):
+    """launches_per_call against counts made by hand from the split rule:
+    resident, the flag's fill and the kernel; hybrid, the fill, each
+    subtree, five per level above and a copy of S at each level on the
+    tree's left edge, and the refinement (complex64 M = 514: levels 514,
+    264, 250, two at offset 0, subtrees 136, 128, 128, 122: 2 + 4 + 15 +
+    2; M = 169: one subtree, no level; complex128 M = 514: seven levels,
+    three at offset 0, eight subtrees: 2 + 8 + 35 + 3)."""
+    assert bi.launches_per_call(dtype, M) == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -196,16 +247,12 @@ def test_hybrid_recursion_frees_the_workspace_at_once():
     import gc
     import weakref
     R, _ = _hpd(2, 300, 9, np.complex128)
-    W = R.clone()
+    W = torch.empty_like(R)
     ref = weakref.ref(W)
-
-    def invert(W, o, n):
-        W[:, o:o + n, o:o + n] = bi.hpd_block_inverse(
-            W[:, o:o + n, o:o + n].clone())
     enabled = gc.isenabled()
     gc.disable()
     try:
-        bi.hybrid_inverse(W, invert)
+        bi.hybrid_inverse(R, W, bi.subtree_reference)
         del W
         assert ref() is None
     finally:

@@ -79,6 +79,12 @@ def test_cuda_fused_loop_matches_host_loop(dtype):
     engine.clear_graph_cache()
 
 
+# the block-inverse kernel's residual ratios against the plain version's
+# (chip_smoke.py BI_RATIO_TOL: about ten times the largest difference of
+# its sound runs on the card)
+_BI_RATIO_TOL = {torch.complex64: 4e-6, torch.complex128: 1e-14}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-4),
                                        (torch.complex128, 1e-10)])
@@ -102,16 +108,74 @@ def test_cuda_block_inverse_matches_plain_version(dtype, tol):
         n = bi.block_inverse_solve.launches
         sol = bi.block_inverse_solve(R.cuda(), b.cuda())
         torch.cuda.synchronize()
-        kernels = bi.launches_per_call(dtype, M) - (
-            1 if bi.path_for(dtype, M) == "resident" else 2
-            + 5 * len(bi._nodes(dtype, M)[0]))
+        _, subtrees = bi._nodes(dtype, M)
+        kernels = (1 if bi.path_for(dtype, M) == "resident" else
+                   len(subtrees) + 1)
         assert bi.block_inverse_solve.launches == n + kernels
         ref = bi.solve_reference(R, b)
         err = (sol.x.cpu() - ref.x).abs().max() / ref.x.abs().max()
         assert err <= tol, (M, err)
         assert bool(sol.ok) and bool(sol.finite.all())
         torch.testing.assert_close(sol.resid_ratio.cpu(), ref.resid_ratio,
-                                   rtol=0, atol=10 * tol)
+                                   rtol=0, atol=_BI_RATIO_TOL[dtype])
         R[1, 0, 0] = 0
         sol = bi.block_inverse_solve(R.cuda(), b.cuda())
         assert not bool(sol.ok) and not bool(sol.finite[1])
+
+
+def _hpd_systems(rng, B, M, dtype):
+    A = rng.normal(size=(B, M, M)) + 1j * rng.normal(size=(B, M, M))
+    R = A @ np.conj(np.swapaxes(A, -1, -2)) / M + np.eye(M)
+    d = np.sqrt(np.real(np.einsum("bii->bi", R)))
+    R = torch.as_tensor(R / (d[:, :, None] * d[:, None, :]), dtype=dtype)
+    b = torch.as_tensor(rng.normal(size=(B, M))
+                        + 1j * rng.normal(size=(B, M)), dtype=dtype)
+    return R, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-4),
+                                       (torch.complex128, 1e-10)])
+def test_cuda_block_inverse_at_path_boundaries(dtype, tol):
+    """The kernel against its plain version at both sides of every
+    boundary of its path table: resident to hybrid (complex64 168 / 169,
+    complex128 118 / 119), two blocks a SM to one (complex64 resident
+    118 / 119, subtrees 120 / 121 at M = 241), the subtree limit (170 /
+    171, 120 / 121), the small nodes (32 / 33), and SA19's top tier at a
+    batch below the SM count (154 x 194): x to the tolerances of
+    tests/test_torch_solver.py, the gate's inputs, the launch count."""
+    _needs_cuda()
+    from eaqhm_torch.ops import block_inverse as bi
+    rng = np.random.default_rng(8)
+    for B, M in ((3, 32), (3, 33), (3, 117), (3, 118), (3, 119), (3, 120),
+                 (3, 121), (3, 168), (3, 169), (3, 170), (3, 171), (3, 241),
+                 (154, 194)):
+        R, b = _hpd_systems(rng, B, M, dtype)
+        n = bi.block_inverse_solve.launches
+        sol = bi.block_inverse_solve(R.cuda(), b.cuda())
+        torch.cuda.synchronize()
+        _, subtrees = bi._nodes(dtype, M)
+        kernels = (1 if bi.path_for(dtype, M) == "resident" else
+                   len(subtrees) + 1)
+        assert bi.block_inverse_solve.launches == n + kernels, M
+        ref = bi.solve_reference(R, b)
+        err = (sol.x.cpu() - ref.x).abs().max() / ref.x.abs().max()
+        assert err <= tol, (M, err)
+        assert bool(sol.ok) and bool(sol.finite.all()), M
+        torch.testing.assert_close(sol.resid_ratio.cpu(), ref.resid_ratio,
+                                   rtol=0, atol=_BI_RATIO_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_block_inverse_path_table_matches_the_library():
+    """The wrapper's path table (pure Python, the shared-memory sizes of
+    ops.block_inverse.smem_bytes) equals the kernel library's bi_path and
+    bi_subtree_max at every M from 1 to 2000, in both types."""
+    _needs_cuda()
+    from eaqhm_torch.ops import block_inverse as bi
+    lib = bi.library("cuda")
+    for c128, dtype in ((0, torch.complex64), (1, torch.complex128)):
+        assert lib.bi_subtree_max(c128) == bi.subtree_max(dtype)
+        for M in range(1, 2001):
+            assert lib.bi_path(M, c128) == bi.PATHS.index(
+                bi.path_for(dtype, M)), (dtype, M)

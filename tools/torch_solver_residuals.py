@@ -23,11 +23,16 @@ With --signal stress the input is the JAX benchmark's config-4 signal
 (eaqhm_torch.benchmarks.stress_signal, male preset; tiers M = 386 and
 514), cut to --seconds when given; with --signal corpus64 it is config 3's
 64 two-second utterances (benchmarks.corpus, female, max_adaptations=6),
-one summary line each (final SRER against float64, gated batches).
+one summary line each (final SRER against float64, gated batches, the
+batches the kernel and the plain version decide differently at the gate).
+--against REPORT.json (this tool's --out of another run, e.g. the plain
+route) sets each case's final float32 SRER beside that run's: the
+difference per case and its largest and mean size.
 
     python3 tools/torch_solver_residuals.py [--genders female male]
         [--signal sa19|stress|corpus64] [--route kernel|plain]
         [--device cuda] [--seconds S] [--out OUT.json]
+        [--against OTHER.json]
 """
 import argparse
 import json
@@ -60,6 +65,32 @@ def _rel_err(x, x128):
                   / scale).amax())
 
 
+def _differ(rows):
+    return sum(r["gate_reruns"] != r["gate_reruns_plain"] for r in rows)
+
+
+def _compare(report, path, route):
+    """Each case's final float32 SRER beside the same case's in another
+    run's report."""
+    with open(path) as f:
+        other = json.load(f)
+    gaps = []
+    for name, v in report.items():
+        if name not in other:
+            continue
+        a = float(np.max(v["srer_db"]))
+        b = float(np.max(other[name]["srer_db"]))
+        gaps.append(a - b)
+        print(f"{name}: final SRER float32 route {route} {a:.6f}, route "
+              f"{other[name]['route']} {b:.6f}, difference {a - b:+.6f} dB")
+    if gaps:
+        g = np.abs(np.asarray(gaps))
+        print(f"against {os.path.basename(path)}: {len(gaps)} cases, final "
+              f"SRER differences largest {g.max():.6f} dB, mean "
+              f"{g.mean():.6f} dB, mean signed {np.mean(gaps):+.6f} dB, "
+              f"{int((g > 1e-3).sum())} above 1e-3 dB")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--genders", nargs="+", default=["female", "male"])
@@ -72,6 +103,8 @@ def main():
                     help="the float32 trajectory's solve: the wrapper "
                     "(the kernel on the card) or the plain version")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--against", default=None,
+                    help="another run's --out: final SRER per case beside")
     args = ap.parse_args()
     # (name, signal, sample rate, configuration keywords)
     if args.signal == "corpus64":
@@ -158,7 +191,8 @@ def main():
                       f"{report[name]['final_gap_db']:+.6f} dB; batches "
                       f"{len(rows)}, gated {sum(r['gate_reruns'] for r in rows)}"
                       f" (plain on the same batches "
-                      f"{sum(r['gate_reruns_plain'] for r in rows)}), route "
+                      f"{sum(r['gate_reruns_plain'] for r in rows)}; decided "
+                      f"differently {_differ(rows)}), route "
                       f"{args.route}", flush=True)
                 continue
             for r in rows:
@@ -171,6 +205,8 @@ def main():
                       f"{r['rel_err_plain']:.3e} gate_reruns="
                       f"{r['gate_reruns_plain']}; |x - x_plain| "
                       f"{r['kernel_vs_plain']:.2e}")
+            print(f"{name}: batches decided differently by the kernel and "
+                  f"the plain version {_differ(rows)} of {len(rows)}")
             print(f"{name}: largest healthy ratio "
                   f"{report[name]['max_healthy_ratio']}, smallest diverged "
                   f"{report[name]['min_diverged_ratio']}, gate "
@@ -181,6 +217,14 @@ def main():
         solver.solve_gram = orig
         solver.block_inverse_solve = orig_bi
         engine._Adapter.adapt0, engine._Adapter.adapt = adapt0, adapt
+    every = [r for v in report.values() for r in v["batches"]]
+    print(f"all cases: {_differ(every)} of {len(every)} batches decided "
+          f"differently by the kernel and the plain version at the gate; "
+          f"gated by the kernel {sum(r['gate_reruns'] for r in every)}, by "
+          f"the plain version {sum(r['gate_reruns_plain'] for r in every)} "
+          f"(route {args.route})")
+    if args.against:
+        _compare(report, args.against, args.route)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
