@@ -95,17 +95,28 @@
    48 kHz with gender (50, 180), 0.15 s, max_adaptations=2 (M = 1950;
    float32 "pallas"), float64 and float32 with float32 under the gate;
    wall, peak device memory and launches per path printed.
-13. One JSON line of the kernels (each kernel at every launch the paths
-   made, the block inverse per type at every call, launches counted per
-   entry point and per path, counts set to 0 just before each path and
-   read just after), the nvidia-smi line, and as
+13. Fit phase: every path above asserts that both fit kernels (fit_basis,
+   fit_gram: ops.fit) launched, once each per fit, graph replays included
+   (the fused loops' warm calls launch them only inside replays), and that
+   the plain version served no fit.  Then both kernels against the plain
+   version (the torch-op fit) at every fit shape the paths launched (B, N,
+   Kc, mode, type), on inputs drawn on the card: R, rhs and dinv to 1e-12
+   (complex128) / 3e-5 (complex64) of their largest entry, R exactly
+   Hermitian; ms, plain ms, library ms (the three Grams by torch.matmul on
+   materialized A and B) and the bound per shape, and the stress fit per
+   eaQHM adaptation through the kernels and the plain version at the
+   stress runs' batches, beside the span before the kernels.
+14. One JSON line of the kernels (each kernel at every launch the paths
+   made, the block inverse per type at every call, the fit over every
+   shape, launches counted per entry point and per path, counts set to 0
+   just before each path and read just after), the nvidia-smi line, and as
    the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases stress presets    # some phases only
 
 runs the setup and the phases named (base: 2-7; corpus: 8; stress: 9;
-presets: 10; corpus64: 11; wide: 12) and a kernels line over them; the
-default is all of them.  Any failure raises and exits non-zero before the last line.
+presets: 10; corpus64: 11; wide: 12), the fit phase over their fits and a
+kernels line over them; the default is all of them.  Any failure raises and exits non-zero before the last line.
 Without CUDA, or outside a checkout of the repository, it fails.
 """
 import contextlib
@@ -173,6 +184,18 @@ BI_BEFORE_MS = {
 # block-inverse calls per path of the main runs: name -> (calls (B, M,
 # kernel path), kernel launches, launches in graph replays)
 BI_RUNS = {}
+# fit kernel launches per path: name -> (fit_basis shapes (B, N, Kc, mode,
+# type), fit_basis launches, fit_gram launches, launches in graph replays)
+FIT_RUNS = {}
+STRESS_EAQHM = {}           # eaQHM adaptations of each stress run
+# the fit kernels against the plain version (relative to the largest entry
+# of R, rhs and dinv): complex128 to rounding; complex64 also sums its phase
+# cumsum in row order (torch.cumsum on the card does not) and R over up to
+# 2897 rows in float32: about 5x the largest gap of the card runs, 5.9e-6
+FIT_TOL = {"float64": 1e-12, "float32": 3e-5}
+# the torch-op fit's span per stress eaQHM adaptation before the kernels
+# (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
+FIT_BEFORE_S = {"float32": "4.21-4.25", "float64": "5.96"}
 
 
 def log(*a):
@@ -531,6 +554,7 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
            "subst_replayed": chol.chol_subst.replayed}
     shapes = (list(chol.chol_solve.shapes), list(chol.chol_subst.shapes))
     bi_calls, rec["bi"], rec["bi_replayed"] = take_bi(name)
+    rec["fit"] = take_fit(name)[1]
     assert len(shapes[0]) == rec["launches"]
     assert len(shapes[1]) == rec["subst"]
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
@@ -541,18 +565,21 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
         warm = eaqhm_torch.analyze(sig, FS, cfg, device="cuda")
         torch.cuda.synchronize()
         warm_s.append(time.time() - t0)
+    _, fit_warm, _, fit_replayed = take_fit(name + " (warm)", keep=False)
     from eaqhm_torch.ops import block_inverse
     rec["warm"] = {"launches": chol.chol_solve.launches,
                    "replayed": chol.chol_solve.replayed,
                    "subst": chol.chol_subst.launches,
                    "subst_replayed": chol.chol_subst.replayed,
                    "bi": block_inverse.block_inverse_solve.launches,
-                   "bi_replayed": block_inverse.block_inverse_solve.replayed}
+                   "bi_replayed": block_inverse.block_inverse_solve.replayed,
+                   "fit": fit_warm, "fit_replayed": fit_replayed}
     log(f"path {name}: srer={res.srer} launches (first call): chol_solve "
         f"{rec['launches']} ({rec['replayed']} in graph replays) chol_subst "
         f"{rec['subst']} ({rec['subst_replayed']} in replays) block_inverse "
         f"{rec['bi']} ({rec['bi_replayed']} in replays) over {len(bi_calls)}"
-        f" calls {dict(Counter(bi_calls))}; warm call "
+        f" calls {dict(Counter(bi_calls))}, fit_basis and fit_gram "
+        f"{rec['fit']} each; warm call "
         f"{rec['warm']} (B, M, path) "
         f"{dict(Counter(x[:3] for x in shapes[0]))} "
         f"first_call_s={first_s:.3f} warm_s={[round(w, 4) for w in warm_s]} "
@@ -607,6 +634,8 @@ def check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec, **kw):
     w = rec["warm"]
     per_replay = w["replayed"] // warm.fused["replays"]
     assert per_replay > 0 and w["replayed"] == per_replay * (n - 1), w
+    assert w["fit_replayed"] > 0 and \
+        w["fit_replayed"] % warm.fused["replays"] == 0, w
     reset_counts(chol)
     eaqhm_torch.analyze(sig, FS, eaqhm_torch.EaqhmConfig(
         gender="female", max_adaptations=0, **kw), device="cuda")
@@ -697,11 +726,31 @@ def chol_shapes(chol):
 
 
 def reset_counts(chol):
-    """Every kernel count of the solve to 0: the Cholesky kernel's and the
-    block inverse's."""
-    from eaqhm_torch.ops import block_inverse
+    """Every kernel count of the fit and the solve to 0: the fit kernels',
+    the Cholesky kernel's and the block inverse's."""
+    from eaqhm_torch.ops import block_inverse, fit
     chol.reset_counts()
     block_inverse.reset_counts()
+    fit.reset_counts()
+
+
+def take_fit(name, keep=True):
+    """The fit kernels' launches since the counts were set to 0: both
+    kernels launched, once each per fit (graph replays included), none
+    served by the plain version; kept in FIT_RUNS under name (keep) for the
+    fit phase and the kernels line."""
+    from eaqhm_torch.ops import fit
+    fb, fg = fit.fit_basis, fit.fit_gram
+    plain = (fit.iqhm_gram.plain_calls, fit.eaqhm_gram.plain_calls)
+    assert plain == (0, 0), (name, plain)
+    assert fb.launches > 0 and fg.launches > 0, (name, fb.launches,
+                                                 fg.launches)
+    assert fb.launches == fg.launches == len(fb.shapes) == len(fg.shapes), (
+        name, fb.launches, fg.launches)
+    rec = (list(fb.shapes), fb.launches, fg.launches, fb.replayed)
+    if keep:
+        FIT_RUNS[name] = rec
+    return rec
 
 
 def take_bi(name, expect=False):
@@ -844,6 +893,7 @@ def bi_fixture_phase(torch, chol, eaqhm_torch, pref):
     res = eaqhm_torch.analyze(pref[p + "signal"], FS, cfg, device="cuda")
     torch.cuda.synchronize()
     calls, launches, _ = take_bi("float64_block_inverse", expect=True)
+    take_fit("float64_block_inverse")
     assert chol.chol_solve.launches == 0
     d_srer = float(np.max(np.abs(np.asarray(res.srer) - pref[p + "srer"])))
     d_wave = float(np.max(np.abs(res.s_recon - pref[p + "s_recon"])))
@@ -897,6 +947,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
     torch.cuda.synchronize()
     shapes = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
+    take_fit("float64_streams")
     assert set(four.failed) == {len(corpus)}, four.failed
     check_streams(four, seq, idx, "streams 4 workers")
     rates["4 workers"] = four.audio_seconds_per_second
@@ -914,6 +965,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
             f"{chol.chol_solve.launches - chol.chol_solve.replayed} eager; "
             f"per worker {fused.per_device}")
         assert chol.chol_solve.replayed > 0
+        assert take_fit(f"float64_fused_streams_{rep}", keep=False)[3] > 0
     log(f"streams: audio-s/s over {len(corpus)} utterances ({audio:.1f} s "
         f"of audio, float64, female, max_adaptations=6): "
         f"{ {k: round(v, 3) for k, v in rates.items()} }; per worker "
@@ -942,6 +994,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     first_s = time.time() - t0
     sh64 = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == 0
+    take_fit("float64_batch")
     t0 = time.time()
     warm = batch_engine.analyze_batch(sigs, FS, cfg64, device="cuda")
     warm_s = time.time() - t0
@@ -966,6 +1019,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     out32 = batch_engine.analyze_batch(sigs, FS, cfg32, device="cuda")
     torch.cuda.synchronize()
     sh32 = chol_shapes(chol)
+    take_fit("float32_batch")
     bi32 = take_bi("float32_batch", expect=True)
     d32 = out32.final_srer - out.final_srer
     log(f"batch float32 (default solve): final SRER "
@@ -1016,6 +1070,7 @@ def mesh_phase(torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod,
                                          mesh=mesh, device="cuda")
         torch.cuda.synchronize()
         shapes = chol_shapes(chol)
+        take_fit("float64_mesh")
         d_srer = float(np.max(np.abs(out.srer - out_none.srer)))
         d_wave = float(np.max(np.abs(out.s_recon - out_none.s_recon)))
         log(f"mesh {tuple(mesh.shape)} (NCCL, world 1) vs mesh=None: "
@@ -1186,6 +1241,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
         shapes[f"{dt}_stress"] = sh
         bi_calls, bi_n, _ = take_bi(f"{dt}_stress", expect=dt == "float32")
+        take_fit(f"{dt}_stress")
         peak = torch.cuda.max_memory_allocated()
         per = spans.per_adaptation()
         assert len(per) == len(res.srer) == len(res.metrics), (len(per),
@@ -1204,6 +1260,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
                 f"{m['srer_db']:.6f} dB, device spans (s) "
                 f"{ {k: round(v, 4) for k, v in per[a].items()} }")
         eaqhm = per[1:] or per
+        STRESS_EAQHM[dt] = len(res.srer) - 1
         log(f"stress {dt} per eaQHM adaptation (mean of {len(eaqhm)}): solve "
             f"{np.mean([p.get('solve', 0.0) for p in eaqhm]):.4f} s beside "
             f"fit {np.mean([p.get('fit', 0.0) for p in eaqhm]):.4f} s")
@@ -1235,6 +1292,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
     res = eaqhm_torch.analyze(s[a:b], FS, cfg, device="cuda")
     torch.cuda.synchronize()
     shapes["float64_stress_slice"] = chol_shapes(chol)
+    take_fit("float64_stress_slice")
     log(f"stress slice (samples {a}-{b}, max_adaptations="
         f"{cfg.max_adaptations}): {time.time() - t0:.3f} s, tiers "
         f"{res.tiers}, srer {res.srer}")
@@ -1273,8 +1331,9 @@ def presets_phase(torch, chol, eaqhm_torch, filters, benchmarks, sig,
         assert chol.chol_solve.plain_calls == 0
         shapes[path][0].extend(sh[0])
         shapes[path][1].extend(sh[1])
-        bi = take_bi(f"{path}_{g}_{'fc0' if cfg.fc == 0 else 'fc30'}",
-                     expect=path.startswith("float32"))
+        name = f"{path}_{g}_{'fc0' if cfg.fc == 0 else 'fc30'}"
+        bi = take_bi(name, expect=path.startswith("float32"))
+        take_fit(name)
         log(f"presets {g} {what}: {el:.3f} s, tiers {res.tiers}, srer "
             f"{res.srer}, launches {len(sh[0])} + {len(sh[1])} (B, M) "
             f"{dict(Counter(x[:2] for x in sh[0]))}, block_inverse {bi[1]} "
@@ -1313,6 +1372,9 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     line, seq = benchmarks.bench_config3(run, batch=CORPUS64_N, repeats=1)
     assert line["path"] == "sequential_per_utterance", line
     assert line["kernels"]["chol_solve"]["launches"] > 0
+    for k in ("fit_basis", "fit_gram"):
+        assert line["kernels"][k]["launches"] > 0, line["kernels"]
+        assert line["kernels"][k]["plain_calls"] == 0, line["kernels"]
     sigs, fs, _ = benchmarks.corpus(run, CORPUS64_N, 2.0)
     cfg = benchmarks.corpus_config(run)
     reset_counts(chol)
@@ -1322,6 +1384,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     first_s = time.time() - t0
     sh = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == 0
+    take_fit("float64_batch64")
     t0 = time.time()
     batch_engine.analyze_batch(sigs, fs, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1341,6 +1404,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     line32, seq32 = benchmarks.bench_config3(
         benchmarks.Run("cuda", dtype="float32"), batch=CORPUS64_N, repeats=1)
     bi = take_bi("float32_corpus64", expect=True)
+    take_fit("float32_corpus64")
     d32 = np.asarray(seq32["final_srer"]) - np.asarray(seq["final_srer"])
     d_mean = line32["srer_mean_db"] - line["srer_mean_db"]
     log(f"corpus-64 float32 (default solve, sequential): {line32['value']} "
@@ -1470,6 +1534,7 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
             path = f"{dt}_wide_{name}" + ("_fused" if fused else "")
             shapes[path] = sh
             bi = take_bi(path, expect=dt == "float32" and solve32 is None)
+            take_fit(path)
             log(f"{what}: {seconds:g} s at {fs} Hz, wall {wall:.3f} s, peak "
                 f"device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tiers "
@@ -1493,6 +1558,148 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
             "srer": np.asarray(f64.srer), "s_recon": f64.s_recon},
             f"wide {name} float32 against float64")
     return shapes
+
+
+def fit_inputs(torch, B, N, Kc, dtype, seed):
+    """One batch of both fits' inputs, drawn on the card: harmonic tracks of
+    an f0 per frame inside the band (fs 16 kHz below N = 700, 48 kHz above),
+    zero gaps inside the window and runs to its edges, wl < W on most
+    frames, a dead frame, a frame with every harmonic masked, fm at exact
+    halves on one track."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    W = (N - 1) // 2
+    fs = 16000.0 if N < 700 else 48000.0
+    o = torch.arange(-W, W + 1, device=dev)
+    wl = torch.randint(max(1, W // 2), W + 1, (B,), generator=g, device=dev)
+    wl[0] = W
+    s_win = torch.randn((B, N), generator=g, device=dev,
+                        dtype=torch.float64).to(dtype)
+    f0 = (0.5 + 0.5 * torch.rand(B, generator=g, device=dev,
+                                 dtype=torch.float64)) * (fs / 2 / Kc)
+    K = torch.clamp(torch.floor(fs / 2 / f0), max=Kc).long()
+    K[1 % B] = max(1, Kc // 3)
+    k = torch.arange(1, Kc + 1, device=dev, dtype=torch.float64)
+    fm = f0[:, None, None] * k + 2.0 * torch.randn(
+        (B, N, Kc), generator=g, device=dev, dtype=torch.float64)
+    fm[0, :, 0] = torch.round(fm[0, :, 0]) + 0.5
+    am = 0.01 + 0.49 * torch.rand((B, N, Kc), generator=g, device=dev,
+                                  dtype=torch.float64)
+    gaps = torch.rand((B, N, Kc), generator=g, device=dev) < 0.1
+    gaps[:, :W // 3, 1 % Kc] = True
+    gaps[:, N - W // 4:, 2 % Kc] = True
+    gaps[B - 1] = True
+    fm = torch.where(gaps, 0.0, fm).to(dtype)
+    am = torch.where(gaps, 0.0, am).to(dtype)
+    colmask = fm[:, W, :] != 0
+    colmask[:, 0] = True
+    if B > 2:
+        colmask[B - 2] = False
+    return dict(s_win=s_win, o=o, wl=wl, f0=f0.to(dtype), K=K, fm=fm,
+                am=am, colmask=colmask, fs=fs)
+
+
+def fit_cost(B, N, Kc, mode, isz):
+    """(bytes, real flops) of one fit: the windows read once (s; fm, am and
+    the mask in eaQHM mode; f0, K in iQHM), R, rhs and dinv written once;
+    the three Grams as one triangle each, 8 flops a complex multiply-add."""
+    Kc2 = 2 * Kc + 1
+    M = 2 * Kc2
+    nin = B * N * isz + (B * Kc * (2 * N * isz + 1) if mode == "eaqhm"
+                         else B * (isz + 8))
+    nout = B * M * (2 * M + 3) * isz
+    return nin + nout, 3 * (Kc2 * (Kc2 + 1) // 2) * N * 8 * B
+
+
+def fit_phase(torch, fit):
+    """Both fit kernels against the plain version (the torch-op fit) at
+    every fit shape the paths launched (FIT_RUNS), on inputs drawn on the
+    card: R, rhs and dinv to FIT_TOL of their largest entry, R exactly
+    Hermitian; the kernels' ms, the plain version's, the library's (the
+    three Grams by torch.matmul on materialized A and B) and the bound, per
+    shape and summed over the paths' launches.  Then the stress fit per
+    eaQHM adaptation: the kernels and the plain version at the stress runs'
+    batches, beside the span before the kernels.  Returns the kernels-line
+    entry."""
+    counts = Counter(sh for rec in FIT_RUNS.values() for sh in rec[0])
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    err, per_shape = 0.0, {}
+    for i, (shape, count) in enumerate(sorted(counts.items())):
+        B, N, Kc, mode, rname = shape
+        dt = getattr(torch, rname)
+        d = fit_inputs(torch, B, N, Kc, dt, seed=4000 + i)
+        if mode == "iqhm":
+            args = (d["s_win"], d["o"], d["wl"], d["f0"], d["K"], d["fs"],
+                    Kc)
+            kern = lambda: fit.iqhm_gram(*args, dtype=dt)  # noqa: E731
+            plain = lambda: fit.iqhm_gram_reference(*args, dtype=dt)  # noqa
+            kw = dict(f0=d["f0"], K=d["K"], Kc=Kc)
+        else:
+            args = (d["s_win"], d["fm"], d["am"], d["o"], d["wl"],
+                    d["colmask"], d["fs"])
+            kern = lambda: fit.eaqhm_gram(*args, dtype=dt)  # noqa: E731
+            plain = lambda: fit.eaqhm_gram_reference(*args, dtype=dt)  # noqa
+            kw = dict(fm_win=d["fm"], am_win=d["am"], colmask_k=d["colmask"])
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[0].mH), shape
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        e_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+        assert max(errs) <= FIT_TOL[rname], (shape, errs)
+        err = max(err, e_abs)
+        del got, want
+        reps = 3 if count > 1 else 1
+        k_ms = cuda_ms(kern, reps)
+        p_ms = cuda_ms(plain, reps)
+        A = fit.fit_basis(mode, d["s_win"], d["o"], d["wl"], dt,
+                          fs=d["fs"], **kw)[0]
+        Bm = A * d["o"][None, :, None].to(A.dtype)
+        Ah, Bh = A.mH, Bm.mH
+        l_ms = cuda_ms(lambda: (torch.matmul(Ah, A), torch.matmul(Ah, Bm),
+                                torch.matmul(Bh, Bm)), reps)
+        del A, Bm, Ah, Bh, d
+        nbytes, flops = fit_cost(B, N, Kc, mode, 8 if rname == "float64"
+                                 else 4)
+        cname = "complex128" if rname == "float64" else "complex64"
+        bnd, by = bound_ms(nbytes, flops, cname)
+        per_shape[shape] = (k_ms, p_ms)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                       ("library_ms", l_ms),
+                       ("t_bytes", nbytes / HBM_BYTES_S * 1e3),
+                       ("t_ops", flops / PEAK_FLOP_S[cname] * 1e3)):
+            tot[key] += count * v
+        log(f"fit kernels {mode} {rname} B={B} N={N} Kc={Kc} (M = "
+            f"{2 * (2 * Kc + 1)}) x{count}: ms={k_ms:.3f} plain_ms="
+            f"{p_ms:.3f} library_ms={l_ms:.3f} bound_ms={bnd:.4f} ({by}) "
+            f"max_rel_err R, rhs, dinv {[f'{e:.2e}' for e in errs]} "
+            f"(asserted <= {FIT_TOL[rname]})")
+        torch.cuda.empty_cache()
+    for dt, n_ad in STRESS_EAQHM.items():
+        shapes = [sh for sh in FIT_RUNS[f"{dt}_stress"][0]
+                  if sh[3] == "eaqhm"]
+        k_s = sum(per_shape[sh][0] for sh in shapes) / 1e3 / n_ad
+        p_s = sum(per_shape[sh][1] for sh in shapes) / 1e3 / n_ad
+        log(f"stress {dt} fit per eaQHM adaptation ({n_ad} adaptations, "
+            f"{len(shapes) // n_ad} batches each): the kernels {k_s:.4f} s "
+            f"against the plain version's {p_s:.4f} s at the same batches "
+            f"(this run's fit phase); the span before the kernels "
+            f"{FIT_BEFORE_S[dt]} s (PERF.md)")
+    by_path = {name: rec[1] + rec[2] for name, rec in FIT_RUNS.items()}
+    bnd = max(tot["t_bytes"], tot["t_ops"])
+    return {"name": "fit", "route": "cuda",
+            "source": "eaqhm_torch/kernels/csrc/fit.cu",
+            "replaces": "eaqhm_tpu/ops/solver.py:212",
+            "replaces_also": ["eaqhm_tpu/ops/solver.py:402",
+                              "eaqhm_tpu/ops/solver.py:508"],
+            "launches": sum(by_path.values()),
+            "launches_by_entry": {
+                "fit_basis": sum(r[1] for r in FIT_RUNS.values()),
+                "fit_gram": sum(r[2] for r in FIT_RUNS.values())},
+            "launches_by_path": by_path,
+            "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": bnd, "bound_by": ("bytes" if tot["t_bytes"] >=
+                                          tot["t_ops"] else "operations"),
+            "library_ms": tot["library_ms"]}
 
 
 def lfilter_line_entry(torch, filters, shapes):
@@ -1543,7 +1750,7 @@ def main(phases=PHASES):
     from eaqhm_torch import benchmarks
     from eaqhm_torch.kernels import build
     from eaqhm_torch.models import engine, vad
-    from eaqhm_torch.ops import block_inverse, chol, filters, solver
+    from eaqhm_torch.ops import block_inverse, chol, filters, fit, solver
     from eaqhm_torch.parallel import batch_engine, streams
     from eaqhm_torch.parallel import corpus as corpus_mod
     from eaqhm_torch.parallel import mesh as mesh_mod
@@ -1677,6 +1884,9 @@ def main(phases=PHASES):
         keep(wide_phase(torch, chol, eaqhm_torch, benchmarks, pref))
         log(f"wide phase: {time.time() - t0:.1f} s")
 
+    t0 = time.time()
+    fit_entry = fit_phase(torch, fit)
+    log(f"fit phase: {time.time() - t0:.1f} s")
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
                       ("complex64", torch.complex64)):
@@ -1694,6 +1904,7 @@ def main(phases=PHASES):
             kernels.append(entry)
     if lf_shapes is not None:
         kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
+    kernels.append(fit_entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

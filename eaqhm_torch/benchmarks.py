@@ -117,26 +117,33 @@ class Run:
 
 
 class Launches:
-    """The Cholesky and block-inverse kernels' counts summed over the timed
-    calls."""
+    """The Cholesky, block-inverse and fit kernels' counts summed over the
+    timed calls."""
 
     def __init__(self):
         self.counts = {name: {"launches": 0, "plain_calls": 0}
                        for name in ("chol_solve", "chol_subst",
-                                    "block_inverse")}
+                                    "block_inverse", "fit_basis", "fit_gram")}
 
     def __call__(self, fn, *args, **kw):
         """fn(*args, **kw) with the counts set to 0 before it and added in
         after it."""
-        from eaqhm_torch.ops import block_inverse, chol
+        from eaqhm_torch.ops import block_inverse, chol, fit
         chol.reset_counts()
         block_inverse.reset_counts()
+        fit.reset_counts()
         out = fn(*args, **kw)
+        plain_fits = fit.iqhm_gram.plain_calls + fit.eaqhm_gram.plain_calls
         for name in self.counts:
-            f = (block_inverse.block_inverse_solve if name == "block_inverse"
-                 else getattr(chol, name))
+            if name.startswith("fit"):
+                # the plain fit serves both kernels' work at once
+                f, plain = getattr(fit, name), plain_fits
+            else:
+                f = (block_inverse.block_inverse_solve
+                     if name == "block_inverse" else getattr(chol, name))
+                plain = f.plain_calls
             self.counts[name]["launches"] += f.launches
-            self.counts[name]["plain_calls"] += f.plain_calls
+            self.counts[name]["plain_calls"] += plain
         return out
 
 

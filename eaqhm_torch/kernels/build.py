@@ -50,6 +50,15 @@ KERNELS = {
         "bi_refine_c64": [_P] * 8 + [_I, _I, _D, _P],
         "bi_refine_c128": [_P] * 8 + [_I, _I, _D, _P],
     }),
+    "fit": ("fit.cu", {
+        "fit_prepare": [],
+        "fit_basis_eaqhm_f32": [_P] * 10 + [_I, _I, _I, _D, _D, _D, _P],
+        "fit_basis_eaqhm_f64": [_P] * 10 + [_I, _I, _I, _D, _D, _D, _P],
+        "fit_basis_iqhm_f32": [_P] * 9 + [_I, _I, _I, _D, _P],
+        "fit_basis_iqhm_f64": [_P] * 9 + [_I, _I, _I, _D, _P],
+        "fit_gram_c64": [_P] * 5 + [_I, _I, _I, _P],
+        "fit_gram_c128": [_P] * 5 + [_I, _I, _I, _P],
+    }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
         "lfilter_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _P],

@@ -28,7 +28,7 @@ from eaqhm_torch.device import resolve_device
 from eaqhm_torch.models import swipe as swipe_mod
 from eaqhm_torch.models import vad as vad_mod
 from eaqhm_torch.models.tracks import interpolate_tracks_anchors
-from eaqhm_torch.ops import block_inverse, chol, filters, interp, solver
+from eaqhm_torch.ops import block_inverse, chol, filters, fit, interp, solver
 from eaqhm_torch.utils import io as io_mod
 from eaqhm_torch.utils.progress import progress_bar
 
@@ -653,6 +653,7 @@ class _FusedLoop:
             self.graph.replay()
             chol.count_replay(self.captured[0])
             block_inverse.count_replay(self.captured[1])
+            fit.count_replay(self.captured[2])
             record["replays"] += 1
         elif self.side is None:
             self.step()
@@ -670,11 +671,13 @@ class _FusedLoop:
             t_c = time.time()
             # kernel attributes set outside capture
             chol.library(self.ad.s.device)
+            fit.library(self.ad.s.device)
             if (self.ad.method or solver.default_solve_method(
                     self.ad.s.dtype)) == "block_inverse":
                 block_inverse.library(self.ad.s.device)
             chol.take_captured()
             block_inverse.take_captured()
+            fit.take_captured()
             graph = torch.cuda.CUDAGraph()
             # "thread_local": CUDA calls of other threads (stream workers)
             # neither break this capture nor fail because of it.  One
@@ -692,7 +695,8 @@ class _FusedLoop:
                 finally:
                     graph.capture_end()
             self.captured = (chol.take_captured(),
-                             block_inverse.take_captured())
+                             block_inverse.take_captured(),
+                             fit.take_captured())
             self.graph = graph
             record["capture_s"] = time.time() - t_c
         return srer, bool(stop), seconds

@@ -7,7 +7,8 @@ All frames of a batch solve at once: windows are padded to a half-width W
 (rows outside a frame's +-wl get window weight 0, which reproduces the
 reference R exactly), harmonic columns are padded to Kc with masked columns
 replaced by identity rows (block-diagonal: the live solution is unchanged),
-and the solve is the batched Cholesky kernel of ``ops.chol`` or the
+the normal equations come from the fit kernels of ``ops.fit`` (re-exported
+here), and the solve is the batched Cholesky kernel of ``ops.chol`` or the
 recursive block inverse (float32's default, as in the JAX package).
 
 Shapes: B frames, N = 2W+1 window rows, Kc max harmonic, M = 2(2Kc+1) columns.
@@ -25,29 +26,14 @@ import math
 
 import torch
 
-from eaqhm_torch.ops import scan
 from eaqhm_torch.ops.block_inverse import (  # noqa: F401  (re-exported)
     block_inverse_solve, gj_inverse, hpd_block_inverse)
 from eaqhm_torch.ops.chol import chol_solve, chol_subst
+from eaqhm_torch.ops.fit import (  # noqa: F401  (re-exported)
+    _mv, blackman_window, build_gram_split, complex_dtype, eaqhm_gram,
+    hamming_window, iqhm_gram, repair_tracks)
 
 _RIDGE = 1e-5
-
-
-def complex_dtype(dtype: torch.dtype) -> torch.dtype:
-    return torch.complex128 if dtype == torch.float64 else torch.complex64
-
-
-def blackman_window(o, wl):
-    """np.blackman(2*wl+1) sampled at centered offsets o, 0 outside +-wl."""
-    r = o / wl
-    w = 0.42 + 0.5 * torch.cos(math.pi * r) + 0.08 * torch.cos(2 * math.pi * r)
-    return torch.where(o.abs() <= wl, w, torch.zeros_like(w))
-
-
-def hamming_window(o, wl):
-    """np.hamming(2*wl+1) sampled at centered offsets o, 0 outside +-wl."""
-    w = 0.54 + 0.46 * torch.cos(math.pi * o / wl)
-    return torch.where(o.abs() <= wl, w, torch.zeros_like(w))
 
 
 def default_solve_method(rdtype: torch.dtype) -> str:
@@ -55,43 +41,6 @@ def default_solve_method(rdtype: torch.dtype) -> str:
     "cholesky" (one solve, the f64 oracle's function); float32 ->
     "block_inverse" at every size."""
     return "cholesky" if rdtype == torch.float64 else "block_inverse"
-
-
-def _mv(R, x):
-    return torch.matmul(R, x[..., None])[..., 0]
-
-
-def build_gram_split(E1, w, o, s_win, colmask1):
-    """Windowed normal equations via the basis' block structure
-    (equilibrated): E = [E1, t*E1], so
-
-        R = [[G0, G1], [G1^H, G2]],  Gk = E1^H W^2 t^k E1
-
-    computed as three half-size Grams of A = w*E1 and B = (w*t)*E1.
-    Masked columns are identity-padded, then Jacobi equilibration scales R
-    to a unit diagonal.  Returns (R, rhs, dinv); the caller de-equilibrates
-    x = solve(R, rhs) * dinv.
-    """
-    A = E1 * w[..., None].to(E1.dtype)
-    B = A * o[None, :, None].to(E1.dtype)
-    Ah = A.mH
-    Bh = B.mH
-    G0 = torch.matmul(Ah, A)
-    G1 = torch.matmul(Ah, B)
-    G2 = torch.matmul(Bh, B)
-    R = torch.cat([torch.cat([G0, G1], dim=-1),
-                   torch.cat([G1.mH, G2], dim=-1)], dim=-2)
-    ws = (w * s_win).to(E1.dtype)
-    rhs = torch.cat([_mv(Ah, ws), _mv(Bh, ws)], dim=-1)
-    colmask = torch.cat([colmask1, colmask1], dim=-1)
-    Mdim = R.shape[-1]
-    eye = torch.eye(Mdim, dtype=R.dtype, device=R.device)
-    R = R + eye * (~colmask[:, None, :])
-    diag = torch.diagonal(R, dim1=-2, dim2=-1).real
-    dinv = torch.rsqrt(torch.clamp(diag, min=1e-30))
-    R = R * (dinv[:, None, :] * dinv[:, :, None]).to(R.dtype)
-    rhs = rhs * dinv
-    return R.contiguous(), rhs.contiguous(), dinv
 
 
 def _refined_solve(R, Rf, rhs, mode):
@@ -172,25 +121,6 @@ def solve_gram(R, rhs, rdtype, method=None):
     return x
 
 
-def iqhm_gram(s_win, o, wl, f0, K, fs, Kc, dtype=torch.float64):
-    """Stationary-fit normal equations (reference functions.py:420-470).
-
-    s_win: [B, N] signal windows centered on each frame; o: [N] centered
-    offsets (-W..W); wl: [B] half-widths; f0: [B]; K: [B] per-frame harmonic
-    count; Kc: static max harmonic.  Returns (R, rhs, dinv).
-    """
-    cdtype = complex_dtype(dtype)
-    dev = s_win.device
-    k = torch.arange(-Kc, Kc + 1, device=dev)                       # [Kc2]
-    colmask1 = k.abs()[None, :] <= K[:, None]                        # [B, Kc2]
-    phase = ((2 * math.pi / fs) * o[None, :, None].to(dtype)
-             * (k[None, None, :].to(dtype) * f0[:, None, None]))
-    E1 = torch.polar(torch.ones_like(phase), phase).to(cdtype)
-    E1 = E1 * colmask1[:, None, :]
-    w = blackman_window(o[None, :].to(dtype), wl[:, None].to(dtype))
-    return build_gram_split(E1, w, o, s_win.to(dtype), colmask1)
-
-
 def split_amps(x, Kc: int):
     """Split a solution row [.., 2(2Kc+1)] into (amps, slopes)."""
     Kc2 = 2 * Kc + 1
@@ -203,103 +133,6 @@ def iqhm_batch(s_win, o, wl, f0, K, fs, Kc, dtype=torch.float64,
     R, rhs, dinv = iqhm_gram(s_win, o, wl, f0, K, fs, Kc, dtype=dtype)
     x = solve_gram(R, rhs, dtype, method=method) * dinv
     return split_amps(x, Kc)
-
-
-def repair_tracks(fm_win, am_win, o, wl):
-    """Zero-gap repair of gathered track windows (functions.py:217-278).
-
-    For each (frame, harmonic): inside the frame's window (+-wl), zeros of
-    fm are filled by linear interpolation between the surrounding nonzeros
-    (constant extension at the edges); am is repaired at fm's zero
-    positions.  Outside +-wl both are set to 0.  The previous and next
-    nonzero come exactly from a cummax (and a flipped cummin) of indices.
-
-    fm_win, am_win: [B, N, K]; o: [N]; wl: [B].
-    """
-    B, N, K = fm_win.shape
-    dtype = fm_win.dtype
-    zero = torch.zeros((), dtype=dtype, device=fm_win.device)
-    inwin = o.abs()[None, :, None] <= wl[:, None, None]             # [B, N, 1]
-    nz = inwin & (fm_win != 0)
-    idx = torch.arange(N, device=fm_win.device)[None, :, None].expand(B, N, K)
-    prev_i = torch.where(nz, idx, -1).cummax(dim=1).values
-    nxt_i = torch.where(nz, idx, N).flip(1).cummin(dim=1).values.flip(1)
-    has_prev = prev_i >= 0
-    has_next = nxt_i < N
-    pc = prev_i.clamp(0, N - 1)
-    nc = nxt_i.clamp(0, N - 1)
-    nxt_i = torch.where(has_next, nxt_i, -1)      # the scan's "none" value
-    denom = (nxt_i - prev_i).to(dtype)
-    ok = denom != 0
-    g = torch.where(ok, (idx - prev_i) / torch.where(ok, denom, 1.0), zero)
-
-    def fill(x):
-        xp = torch.gather(x, 1, pc)
-        xn = torch.gather(x, 1, nc)
-        interp = xp + (xn - xp) * g
-        out = torch.where(nz, x,
-                          torch.where(has_prev & has_next, interp,
-                                      torch.where(has_prev, xp,
-                                                  torch.where(has_next, xn,
-                                                              zero))))
-        return torch.where(inwin, out, zero)
-
-    return fill(fm_win), fill(am_win)
-
-
-def eaqhm_gram(s_win, fm_win, am_win, o, wl, colmask_k, fs,
-               dtype=torch.float64, eps=1e-4):
-    """Non-stationary-fit normal equations (reference functions.py:472-535).
-
-    fm_win/am_win: [B, N, Kc] track windows (positive harmonics 1..Kc at
-    slots 0..Kc-1), already overlay-corrected; zeros are repaired here.
-    colmask_k: [B, Kc] selected harmonics.  Returns (R, rhs, dinv).
-    """
-    cdtype = complex_dtype(dtype)
-    B, N = s_win.shape
-    W = (N - 1) // 2
-    fm_r, am_r = repair_tracks(fm_win.to(dtype), am_win.to(dtype), o, wl)
-    cm = colmask_k[:, None, :]
-    fm_r = fm_r * cm
-    am_r = am_r * cm
-
-    # centered cumulative phase psi(t) = C(t) - C(mid) with the exact
-    # integer split fm = q + r, q = round(fm) (round half to even): integer
-    # partial sums are exact in float32 and reduce mod fs exactly
-    fm_q = torch.round(fm_r)
-    fm_res = fm_r - fm_q
-    cq = scan.cumsum(fm_q, dim=1)
-    cr = scan.cumsum(fm_res, dim=1)
-    psi_q = cq - cq[:, W:W + 1, :]
-    psi_r = cr - cr[:, W:W + 1, :]
-
-    def mk_phase(pq, pr):
-        return (2 * math.pi / fs) * (torch.remainder(pq, fs) + pr)
-
-    phase = mk_phase(psi_q, psi_r)
-    am_mid = am_r[:, W:W + 1, :]
-    rho = (eps + am_r) / (am_mid + eps)
-    pos = (rho * torch.polar(torch.ones_like(phase), phase)).to(cdtype) * cm
-
-    # negative block: the reference feeds -flipud(fm) through the same
-    # inclusive cumsum, which recenters to
-    #   phase_neg(t) = (2pi/fs) * (psi(N-2-t) + fm(mid))
-    def ext_flip(p, c_mid):
-        return torch.cat([-c_mid, p[:, :-1, :]], dim=1).flip(1)
-
-    neg_phase = mk_phase(
-        ext_flip(psi_q, cq[:, W:W + 1, :]) + fm_q[:, W:W + 1, :],
-        ext_flip(psi_r, cr[:, W:W + 1, :]) + fm_res[:, W:W + 1, :])
-    neg = (rho.flip(1) * torch.polar(torch.ones_like(neg_phase),
-                                     neg_phase)).to(cdtype) * cm
-    neg = neg.flip(2)          # slots -Kc..-1 ascending = harmonics Kc..1
-    dc = torch.ones((B, N, 1), dtype=cdtype, device=s_win.device)
-    E1 = torch.cat([neg, dc, pos], dim=-1)                         # [B,N,Kc2]
-    w = hamming_window(o[None, :].to(dtype), wl[:, None].to(dtype))
-    colmask1 = torch.cat([colmask_k.flip(-1),
-                          torch.ones((B, 1), dtype=torch.bool,
-                                     device=s_win.device), colmask_k], dim=-1)
-    return build_gram_split(E1, w, o, s_win.to(dtype), colmask1)
 
 
 def eaqhm_extract(x, colmask_k, Kc: int, fs):

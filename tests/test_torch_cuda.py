@@ -179,3 +179,91 @@ def test_cuda_block_inverse_path_table_matches_the_library():
         for M in range(1, 2001):
             assert lib.bi_path(M, c128) == bi.PATHS.index(
                 bi.path_for(dtype, M)), (dtype, M)
+
+
+# the fit kernels against their plain version on the card, relative to the
+# largest entry of each output: complex128 to rounding (sums in another
+# order); complex64 also rounds its phase cumsum in another order than
+# torch.cumsum and sums R over N <= 2897 rows in float32
+_FIT_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+# (N, Kc, fs) of the main paths' fit batches: SA19's tiers and the stress
+# tiers at 16 kHz, the wide tiers at 22.05, 44.1 and 48 kHz
+_FIT_SHAPES = ((241, 32, 16000.0), (257, 40, 16000.0), (305, 48, 16000.0),
+               (609, 96, 16000.0), (689, 128, 16000.0), (961, 192, 22050.0),
+               (1905, 323, 44100.0), (2897, 487, 48000.0))
+
+
+def fit_inputs(rng, B, N, Kc, fs):
+    """One batch of both fits' inputs (numpy): f0 per frame in the upper
+    half of the tier's range (Kc harmonics below fs / 2, so every column
+    is live and in band), zero gaps inside the window and at its edges,
+    wl < W on most frames, a dead frame (no track), a frame with a third of
+    the harmonics, a frame with every harmonic masked, fm at exact
+    halves."""
+    W = (N - 1) // 2
+    o = np.arange(-W, W + 1)
+    wl = rng.integers(max(1, W // 2), W + 1, size=B)
+    wl[0] = W
+    s_win = rng.normal(size=(B, N))
+    f0 = rng.uniform(0.5, 1.0, size=B) * (fs / 2 / Kc)
+    K = np.minimum(Kc, np.floor(fs / 2 / f0)).astype(np.int64)
+    K[1] = Kc // 3
+    k = np.arange(1, Kc + 1)
+    fm = (f0[:, None, None] * k[None, None, :]
+          + rng.normal(scale=2.0, size=(B, N, Kc)))
+    fm[0, :, 0] = np.round(fm[0, :, 0]) + 0.5
+    am = rng.uniform(0.01, 0.5, size=(B, N, Kc))
+    gaps = rng.random(size=(B, N, Kc)) < 0.1
+    gaps[:, :W // 3, 1] = True                  # before the window's left edge
+    gaps[:, N - W // 4:, 2 % Kc] = True         # to its right edge
+    gaps[B - 1] = True                          # a dead frame
+    fm[gaps] = 0.0
+    am[gaps] = 0.0
+    colmask = fm[:, W, :] != 0
+    colmask[:, 0] = True
+    colmask[B - 2] = False                      # every harmonic masked
+    return dict(s_win=s_win, o=o, wl=wl, f0=f0, K=K, fm=fm, am=am,
+                colmask=colmask)
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-300)
+            ).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["iqhm", "eaqhm"])
+def test_cuda_fit_matches_plain_version(dtype, mode):
+    """fit_basis and fit_gram through iqhm_gram / eaqhm_gram on the card
+    against the plain version (the torch-op fit) on the same inputs, at
+    every (N, Kc) of the main paths' fit batches at its own sampling rate
+    (a few frames each): R, rhs and dinv to _FIT_TOL of their largest
+    entry, R Hermitian, one launch of each kernel per call."""
+    _needs_cuda()
+    from eaqhm_torch.ops import fit
+    rng = np.random.default_rng(17)
+    for N, Kc, fs in _FIT_SHAPES:
+        B = 6
+        d = {k: torch.as_tensor(v, device="cuda")
+             for k, v in fit_inputs(rng, B, N, Kc, fs).items()}
+        s_win = d["s_win"].to(dtype)
+        n_b, n_g = fit.fit_basis.launches, fit.fit_gram.launches
+        if mode == "iqhm":
+            args = (s_win, d["o"], d["wl"], d["f0"].to(dtype), d["K"],
+                    fs, Kc)
+            got = fit.iqhm_gram(*args, dtype=dtype)
+            want = fit.iqhm_gram_reference(*args, dtype=dtype)
+        else:
+            args = (s_win, d["fm"].to(dtype), d["am"].to(dtype), d["o"],
+                    d["wl"], d["colmask"], fs)
+            got = fit.eaqhm_gram(*args, dtype=dtype)
+            want = fit.eaqhm_gram_reference(*args, dtype=dtype)
+        torch.cuda.synchronize()
+        assert (fit.fit_basis.launches, fit.fit_gram.launches) == \
+            (n_b + 1, n_g + 1)
+        R = got[0]
+        assert torch.equal(R, R.mH), (N, Kc)
+        for name, g, w in zip(("R", "rhs", "dinv"), got, want):
+            err = _rel(g, w)
+            assert err <= _FIT_TOL[dtype], (mode, N, Kc, name, err)

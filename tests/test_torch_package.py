@@ -56,7 +56,7 @@ def test_import_leaves_jax_out():
             "import eaqhm_torch, eaqhm_torch.models.engine, "
             "eaqhm_torch.benchmarks, "
             "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol, "
-            "eaqhm_torch.ops.block_inverse, "
+            "eaqhm_torch.ops.block_inverse, eaqhm_torch.ops.fit, "
             "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
             "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "
             "eaqhm_torch.parallel.corpus, eaqhm_torch.parallel.streams, "
