@@ -99,18 +99,22 @@
    fit_gram: ops.fit) launched, once each per fit, graph replays included
    (the fused loops' warm calls launch them only inside replays), and that
    the plain version served no fit.  Then both kernels against the plain
-   version (the torch-op fit) at every fit shape the paths launched (B, N,
-   Kc, mode, type), on inputs drawn on the card: R, rhs and dinv to 1e-12
+   version (the torch-op gather and overlay, then the torch-op fit) at
+   every fit shape the paths launched (B, N, Kc, mode, type), on table
+   inputs drawn on the card (two utterances in one table, dead centres,
+   windows clamped at both ends): R, rhs, dinv and fit_basis's A to 1e-12
    (complex128) / 3e-5 (complex64) of their largest entry, R exactly
-   Hermitian; ms, plain ms, library ms (the three Grams by torch.matmul on
-   materialized A and B) and the bound per shape, and the stress fit per
-   eaQHM adaptation through the kernels and the plain version at the
-   stress runs' batches, beside the span before the kernels.
+   Hermitian; per shape fit_basis's and fit_gram's ms beside their halves
+   of the plain version and their bounds, cuBLAS's three Grams beside
+   fit_gram, and fit_gram's executed work over the least from the
+   library's own plan (asserted <= 1.35); the stress fit per eaQHM
+   adaptation through the kernels and the plain version at the stress
+   runs' batches, beside the kernels before their redesign for Hopper.
 14. One JSON line of the kernels (each kernel at every launch the paths
-   made, the block inverse per type at every call, the fit over every
-   shape, launches counted per entry point and per path, counts set to 0
-   just before each path and read just after), the nvidia-smi line, and as
-   the last line {"ok": true, "device": {...}}.
+   made, the block inverse per type at every call, fit_basis and fit_gram
+   over every shape, launches counted per entry point and per path, counts
+   set to 0 just before each path and read just after), the nvidia-smi
+   line, and as the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases stress presets    # some phases only
 
@@ -189,13 +193,15 @@ BI_RUNS = {}
 FIT_RUNS = {}
 STRESS_EAQHM = {}           # eaQHM adaptations of each stress run
 # the fit kernels against the plain version (relative to the largest entry
-# of R, rhs and dinv): complex128 to rounding; complex64 also sums its phase
-# cumsum in row order (torch.cumsum on the card does not) and R over up to
-# 2897 rows in float32: about 5x the largest gap of the card runs, 5.9e-6
+# of R, rhs, dinv and A): complex128 to rounding; complex64 also sums the
+# phase's fractional cumsum in a tree order (the integer one in row order
+# where it is inexact, as torch.cumsum) and R over up to 2897 rows in
+# float32: about 5x the largest gap of the card runs, 6.1e-6
 FIT_TOL = {"float64": 1e-12, "float32": 3e-5}
-# the torch-op fit's span per stress eaQHM adaptation before the kernels
-# (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
-FIT_BEFORE_S = {"float32": "4.21-4.25", "float64": "5.96"}
+# the stress fit per eaQHM adaptation through the fit kernels' first design,
+# before their redesign for Hopper (the spans, PERF.md, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+FIT_BEFORE_S = {"float32": "1.3488", "float64": "1.8904"}
 
 
 def log(*a):
@@ -741,8 +747,7 @@ def take_fit(name, keep=True):
     fit phase and the kernels line."""
     from eaqhm_torch.ops import fit
     fb, fg = fit.fit_basis, fit.fit_gram
-    plain = (fit.iqhm_gram.plain_calls, fit.eaqhm_gram.plain_calls)
-    assert plain == (0, 0), (name, plain)
+    assert fit.plain_fits() == 0, (name, fit.plain_fits())
     assert fb.launches > 0 and fg.launches > 0, (name, fb.launches,
                                                  fg.launches)
     assert fb.launches == fg.launches == len(fb.shapes) == len(fg.shapes), (
@@ -1560,119 +1565,198 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
     return shapes
 
 
+# the sampling rate of each main-path window length (the wide tiers);
+# 16 kHz otherwise
+FIT_FS = {961: 22050.0, 1905: 44100.0, 2897: 48000.0}
+
+
 def fit_inputs(torch, B, N, Kc, dtype, seed):
-    """One batch of both fits' inputs, drawn on the card: harmonic tracks of
-    an f0 per frame inside the band (fs 16 kHz below N = 700, 48 kHz above),
-    zero gaps inside the window and runs to its edges, wl < W on most
-    frames, a dead frame, a frame with every harmonic masked, fm at exact
-    halves on one track."""
+    """One batch of both fits' inputs as the engines hand them over, drawn
+    on the card: two utterances of L = 3N samples in one table, fm / am
+    tables of Kc + 5 columns (the fit reads the first Kc through the
+    stride), harmonic tracks of an f0 per utterance inside the band, zero
+    gaps and a run to an utterance's end, frames with windows clamped at
+    both ends of each utterance, dead centres left of, at and right of
+    frames' centres, dead frames, a frame with every harmonic masked, wl <
+    W on most frames, fm at exact halves on one track."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
+    dev, f64 = "cuda", torch.float64
     W = (N - 1) // 2
-    fs = 16000.0 if N < 700 else 48000.0
-    o = torch.arange(-W, W + 1, device=dev)
-    wl = torch.randint(max(1, W // 2), W + 1, (B,), generator=g, device=dev)
-    wl[0] = W
-    s_win = torch.randn((B, N), generator=g, device=dev,
-                        dtype=torch.float64).to(dtype)
-    f0 = (0.5 + 0.5 * torch.rand(B, generator=g, device=dev,
-                                 dtype=torch.float64)) * (fs / 2 / Kc)
-    K = torch.clamp(torch.floor(fs / 2 / f0), max=Kc).long()
-    K[1 % B] = max(1, Kc // 3)
-    k = torch.arange(1, Kc + 1, device=dev, dtype=torch.float64)
-    fm = f0[:, None, None] * k + 2.0 * torch.randn(
-        (B, N, Kc), generator=g, device=dev, dtype=torch.float64)
-    fm[0, :, 0] = torch.round(fm[0, :, 0]) + 0.5
-    am = 0.01 + 0.49 * torch.rand((B, N, Kc), generator=g, device=dev,
-                                  dtype=torch.float64)
-    gaps = torch.rand((B, N, Kc), generator=g, device=dev) < 0.1
-    gaps[:, :W // 3, 1 % Kc] = True
-    gaps[:, N - W // 4:, 2 % Kc] = True
-    gaps[B - 1] = True
-    fm = torch.where(gaps, 0.0, fm).to(dtype)
-    am = torch.where(gaps, 0.0, am).to(dtype)
-    colmask = fm[:, W, :] != 0
+    L = 3 * N
+    fs = FIT_FS.get(N, 16000.0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev, dtype=f64)
+    utt = torch.arange(B, device=dev) % 2
+    ctr = torch.randint(0, L, (B,), generator=g, device=dev)
+    ctr[0] = W // 3
+    if B > 1:
+        ctr[1] = L - 1 - W // 4
+    t = torch.arange(L, device=dev, dtype=f64)
+    f0 = (0.5 + 0.5 * rand(2, 1)) * (fs / 2 / Kc)
+    f0_t = f0 * (1.0 + 0.05 * torch.sin(2 * np.pi * t / (L / 3.0)))
+    k = torch.arange(1, Kc + 6, device=dev, dtype=f64)
+    fm = f0_t[..., None] * k + 2.0 * torch.randn(
+        (2, L, Kc + 5), generator=g, device=dev, dtype=f64)
+    fm[0, ::7, 0] = torch.round(fm[0, ::7, 0]) + 0.5
+    am = 0.01 + 0.49 * rand(2, L, Kc + 5)
+    gaps = rand(2, L, Kc + 5) < 0.1
+    gaps[1, L - N:, 1 % Kc] = True
+    gaps[:, :, 0] |= rand(2, L) < 0.2
+    fm = torch.where(gaps, 0.0, fm)
+    am = torch.where(gaps, 0.0, am)
+    dead = rand(2, L) < 0.05
+    for d in (-7, 0, 5):
+        dead[utt[2:], (ctr[2:] + d).clamp(0, L - 1)] = True
+    dd = rand(B) < 0.5
+    f0b = f0[utt, 0] * (1.0 + 0.05 * torch.sin(2 * np.pi * ctr / (L / 3.0)))
+    K = torch.clamp(torch.floor(fs / 2 / f0b), max=Kc).long()
+    colmask = fm[utt, ctr, :Kc] != 0
     colmask[:, 0] = True
     if B > 2:
-        colmask[B - 2] = False
-    return dict(s_win=s_win, o=o, wl=wl, f0=f0.to(dtype), K=K, fm=fm,
-                am=am, colmask=colmask, fs=fs)
+        colmask[B - 1] = False
+    wl = torch.randint(max(1, W // 2), W + 1, (B,), generator=g, device=dev)
+    return dict(s=torch.randn((2, L), generator=g, device=dev,
+                              dtype=f64).to(dtype), fm=fm.to(dtype),
+                am=am.to(dtype), dead=dead, utt=utt, ctr=ctr, dd=dd, W=W,
+                wl=wl, f0=f0b.to(dtype), K=K, colmask=colmask, fs=fs)
 
 
-def fit_cost(B, N, Kc, mode, isz):
-    """(bytes, real flops) of one fit: the windows read once (s; fm, am and
-    the mask in eaQHM mode; f0, K in iQHM), R, rhs and dinv written once;
-    the three Grams as one triangle each, 8 flops a complex multiply-add."""
+def fit_costs(torch, d, B, N, Kc, mode, isz):
+    """(bytes, real flops) of fit_basis and of fit_gram on these inputs.
+    fit_basis: the table rows its windows cover read once (s; fm and am's
+    Kc columns and the dead centres in eaQHM mode) and the per-frame
+    values, A, rhs, dinv, the mask and R's entries against the DC written
+    once.  fit_gram: A, dinv and the mask read, R but the DC entries
+    written; one triangle of each Gram, 3 M^2 N real flops a frame."""
     Kc2 = 2 * Kc + 1
     M = 2 * Kc2
-    nin = B * N * isz + (B * Kc * (2 * N * isz + 1) if mode == "eaqhm"
-                         else B * (isz + 8))
-    nout = B * M * (2 * M + 3) * isz
-    return nin + nout, 3 * (Kc2 * (Kc2 + 1) // 2) * N * 8 * B
+    L = d["s"].shape[1]
+    o = torch.arange(-d["W"], d["W"] + 1, device="cuda")
+    rows = d["utt"][:, None] * L + (d["ctr"][:, None] + o).clamp(0, L - 1)
+    covered = torch.unique(rows).numel()
+    per_row = isz * (1 + 2 * Kc) + 1 if mode == "eaqhm" else isz
+    frame = B * (8 + 8 + isz + (1 + Kc if mode == "eaqhm" else isz + 8))
+    outs = B * (N * Kc2 * 2 * isz + 5 * M * 2 * isz + M * isz + Kc2)
+    basis = (covered * per_row + frame + outs, 0)
+    gram = (B * (N * Kc2 * 2 * isz + M * isz + Kc2
+                 + (M * M - 4 * M) * 2 * isz), 3 * M * M * N * B)
+    return basis, gram
 
 
 def fit_phase(torch, fit):
-    """Both fit kernels against the plain version (the torch-op fit) at
-    every fit shape the paths launched (FIT_RUNS), on inputs drawn on the
-    card: R, rhs and dinv to FIT_TOL of their largest entry, R exactly
-    Hermitian; the kernels' ms, the plain version's, the library's (the
-    three Grams by torch.matmul on materialized A and B) and the bound, per
-    shape and summed over the paths' launches.  Then the stress fit per
-    eaQHM adaptation: the kernels and the plain version at the stress runs'
-    batches, beside the span before the kernels.  Returns the kernels-line
-    entry."""
+    """Both fit kernels against the plain version (the torch-op gather and
+    overlay, then the torch-op fit) at every fit shape the paths launched
+    (FIT_RUNS), on table inputs drawn on the card (fit_inputs): R, rhs and
+    dinv, and fit_basis's A, to FIT_TOL of their largest entry, R exactly
+    Hermitian.  Per shape: fit_basis's and fit_gram's ms, each beside its
+    half of the plain version (the gather and basis; build_gram_split) and
+    its bound, cuBLAS's three Grams on materialized A and B beside
+    fit_gram, and fit_gram's executed work over the least from the
+    library's own plan (fit_gram_plan), asserted <= 1.35.  Then the stress
+    fit per eaQHM adaptation: the kernels and the plain version at the
+    stress runs' batches, beside the kernels' first design.  Returns the two
+    kernels-line entries."""
+    import ctypes
+    lib = fit.library("cuda")
+    plan = (ctypes.c_longlong * 3)()
     counts = Counter(sh for rec in FIT_RUNS.values() for sh in rec[0])
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
-    err, per_shape = 0.0, {}
+    keys = ("ms", "plain_ms", "library_ms", "t_bytes", "t_ops")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("basis", "gram")}
+    err = {"basis": 0.0, "gram": 0.0}
+    per_shape = {}
     for i, (shape, count) in enumerate(sorted(counts.items())):
         B, N, Kc, mode, rname = shape
         dt = getattr(torch, rname)
         d = fit_inputs(torch, B, N, Kc, dt, seed=4000 + i)
+        W, fs = d["W"], d["fs"]
+        o = torch.arange(-W, W + 1, device="cuda")
+        tab = (d["s"], d["utt"], d["ctr"], W)
         if mode == "iqhm":
-            args = (d["s_win"], d["o"], d["wl"], d["f0"], d["K"], d["fs"],
-                    Kc)
-            kern = lambda: fit.iqhm_gram(*args, dtype=dt)  # noqa: E731
-            plain = lambda: fit.iqhm_gram_reference(*args, dtype=dt)  # noqa
-            kw = dict(f0=d["f0"], K=d["K"], Kc=Kc)
+            kw = dict(Kc=Kc, f0=d["f0"], K=d["K"])
+            kern = lambda: fit.iqhm_gram_tables(  # noqa: E731
+                *tab, d["wl"], d["f0"], d["K"], fs, Kc, dtype=dt)
+
+            def plain_basis():
+                s_win = fit.gather_windows(*tab)
+                E1, w, cm = fit._iqhm_basis(o, d["wl"], d["f0"], d["K"], fs,
+                                            Kc, dt)
+                return E1, w, cm, s_win
         else:
-            args = (d["s_win"], d["fm"], d["am"], d["o"], d["wl"],
-                    d["colmask"], d["fs"])
-            kern = lambda: fit.eaqhm_gram(*args, dtype=dt)  # noqa: E731
-            plain = lambda: fit.eaqhm_gram_reference(*args, dtype=dt)  # noqa
-            kw = dict(fm_win=d["fm"], am_win=d["am"], colmask_k=d["colmask"])
-        got, want = kern(), plain()
+            kw = dict(fm=d["fm"], am=d["am"], dead=d["dead"], dd=d["dd"],
+                      colmask_k=d["colmask"])
+            kern = lambda: fit.eaqhm_gram_tables(  # noqa: E731
+                d["s"], d["fm"], d["am"], d["dead"], d["utt"], d["ctr"],
+                d["dd"], W, d["wl"], d["colmask"], fs, dtype=dt)
+
+            def plain_basis():
+                s_win, fm_win, am_win = fit.gather_windows(
+                    *tab, d["fm"], d["am"], d["dead"], d["dd"], Kc)
+                E1, w, cm = fit._eaqhm_basis(fm_win, am_win, o, d["wl"],
+                                             d["colmask"], fs, dt, 1e-4)
+                return E1, w, cm, s_win
+
+        def plain_gram(pb):
+            E1, w, cm, s_win = pb
+            return fit.build_gram_split(E1, w, o, s_win.to(dt), cm)
+
+        def basis():
+            return fit.fit_basis(mode, *tab, d["wl"], dt, fs=fs, **kw)
+        fit.reset_counts()
+        got = kern()
+        pb = plain_basis()
+        want = plain_gram(pb)
+        out_b = basis()
         torch.cuda.synchronize()
+        assert fit.plain_fits() == 0 and fit.fit_basis.launches == 2
         assert torch.equal(got[0], got[0].mH), shape
         errs = [rel_err(g, w) for g, w in zip(got, want)]
-        e_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+        A_plain = pb[0] * pb[1][..., None].to(pb[0].dtype)
+        errs.append(rel_err(out_b[0], A_plain))
         assert max(errs) <= FIT_TOL[rname], (shape, errs)
-        err = max(err, e_abs)
+        err["gram"] = max(err["gram"], (got[0] - want[0]).abs().max().item())
+        err["basis"] = max(err["basis"], max(
+            (g - w).abs().max().item() for g, w in
+            ((got[1], want[1]), (got[2], want[2]), (out_b[0], A_plain))))
         del got, want
         reps = 3 if count > 1 else 1
+        A, R, _, dinv, mask = out_b
         k_ms = cuda_ms(kern, reps)
-        p_ms = cuda_ms(plain, reps)
-        A = fit.fit_basis(mode, d["s_win"], d["o"], d["wl"], dt,
-                          fs=d["fs"], **kw)[0]
-        Bm = A * d["o"][None, :, None].to(A.dtype)
+        b_ms = cuda_ms(basis, reps)
+        g_ms = cuda_ms(lambda: fit.fit_gram(A, R, dinv, mask), reps)
+        pb_ms = cuda_ms(plain_basis, reps)
+        pg_ms = cuda_ms(lambda: plain_gram(pb), reps)
+        Bm = A * o[None, :, None].to(A.dtype)
         Ah, Bh = A.mH, Bm.mH
         l_ms = cuda_ms(lambda: (torch.matmul(Ah, A), torch.matmul(Ah, Bm),
                                 torch.matmul(Bh, Bm)), reps)
-        del A, Bm, Ah, Bh, d
-        nbytes, flops = fit_cost(B, N, Kc, mode, 8 if rname == "float64"
-                                 else 4)
+        del A, R, dinv, mask, out_b, Bm, Ah, Bh, pb, A_plain
+        assert lib.fit_gram_plan(Kc, plan) == 0
+        Kc2 = 2 * Kc + 1
+        ratio = plan[1] * 16 * 16 * 24 / (12 * Kc2 * Kc2)
+        assert ratio <= 1.35, (shape, ratio)
         cname = "complex128" if rname == "float64" else "complex64"
-        bnd, by = bound_ms(nbytes, flops, cname)
-        per_shape[shape] = (k_ms, p_ms)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                       ("library_ms", l_ms),
-                       ("t_bytes", nbytes / HBM_BYTES_S * 1e3),
-                       ("t_ops", flops / PEAK_FLOP_S[cname] * 1e3)):
-            tot[key] += count * v
+        costs = fit_costs(torch, d, B, N, Kc, mode,
+                          8 if rname == "float64" else 4)
+        del d
+        per_shape[shape] = (k_ms, pb_ms + pg_ms)
+        line = {}
+        for key, ms, pms, lms, (nbytes, flops) in (
+                ("basis", b_ms, pb_ms, 0.0, costs[0]),
+                ("gram", g_ms, pg_ms, l_ms, costs[1])):
+            t_b = nbytes / HBM_BYTES_S * 1e3
+            t_o = flops / PEAK_FLOP_S[cname] * 1e3
+            for k2, v in zip(keys, (ms, pms, lms, t_b, t_o)):
+                tot[key][k2] += count * v
+            line[key] = max(t_b, t_o)
         log(f"fit kernels {mode} {rname} B={B} N={N} Kc={Kc} (M = "
-            f"{2 * (2 * Kc + 1)}) x{count}: ms={k_ms:.3f} plain_ms="
-            f"{p_ms:.3f} library_ms={l_ms:.3f} bound_ms={bnd:.4f} ({by}) "
-            f"max_rel_err R, rhs, dinv {[f'{e:.2e}' for e in errs]} "
-            f"(asserted <= {FIT_TOL[rname]})")
+            f"{2 * Kc2}) x{count}: fit_basis {b_ms:.3f} ms (plain "
+            f"{pb_ms:.3f}, bound {line['basis']:.4f} bytes), fit_gram "
+            f"{g_ms:.3f} ms (plain {pg_ms:.3f}, cuBLAS's three Grams "
+            f"{l_ms:.3f}, bound {line['gram']:.4f}), executed work over the "
+            f"least {ratio:.3f} ({plan[1]} live pieces, {plan[0]} tiles a "
+            f"frame); the fit {k_ms:.3f} ms; max_rel_err R, rhs, dinv, A "
+            f"{[f'{e:.2e}' for e in errs]} (asserted <= {FIT_TOL[rname]})")
         torch.cuda.empty_cache()
     for dt, n_ad in STRESS_EAQHM.items():
         shapes = [sh for sh in FIT_RUNS[f"{dt}_stress"][0]
@@ -1682,24 +1766,29 @@ def fit_phase(torch, fit):
         log(f"stress {dt} fit per eaQHM adaptation ({n_ad} adaptations, "
             f"{len(shapes) // n_ad} batches each): the kernels {k_s:.4f} s "
             f"against the plain version's {p_s:.4f} s at the same batches "
-            f"(this run's fit phase); the span before the kernels "
-            f"{FIT_BEFORE_S[dt]} s (PERF.md)")
-    by_path = {name: rec[1] + rec[2] for name, rec in FIT_RUNS.items()}
-    bnd = max(tot["t_bytes"], tot["t_ops"])
-    return {"name": "fit", "route": "cuda",
+            f"(this run's fit phase); the kernels' first design "
+            f"{FIT_BEFORE_S[dt]} s "
+            f"(PERF.md)")
+    entries = []
+    for key, name, replaces, also in (
+            ("basis", "fit_basis", "eaqhm_tpu/ops/solver.py:508",
+             ["eaqhm_tpu/ops/solver.py:402", "eaqhm_tpu/ops/solver.py:441",
+              "eaqhm_tpu/models/engine.py:149"]),
+            ("gram", "fit_gram", "eaqhm_tpu/ops/solver.py:212", [])):
+        t = tot[key]
+        by_path = {n: rec[1 if key == "basis" else 2]
+                   for n, rec in FIT_RUNS.items()}
+        entries.append({
+            "name": name, "route": "cuda",
             "source": "eaqhm_torch/kernels/csrc/fit.cu",
-            "replaces": "eaqhm_tpu/ops/solver.py:212",
-            "replaces_also": ["eaqhm_tpu/ops/solver.py:402",
-                              "eaqhm_tpu/ops/solver.py:508"],
-            "launches": sum(by_path.values()),
-            "launches_by_entry": {
-                "fit_basis": sum(r[1] for r in FIT_RUNS.values()),
-                "fit_gram": sum(r[2] for r in FIT_RUNS.values())},
-            "launches_by_path": by_path,
-            "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": bnd, "bound_by": ("bytes" if tot["t_bytes"] >=
-                                          tot["t_ops"] else "operations"),
-            "library_ms": tot["library_ms"]}
+            "replaces": replaces, "replaces_also": also,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["t_bytes"], t["t_ops"]),
+            "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
+                         else "operations"),
+            "library_ms": t["library_ms"] if key == "gram" else None})
+    return entries
 
 
 def lfilter_line_entry(torch, filters, shapes):
@@ -1885,7 +1974,7 @@ def main(phases=PHASES):
         log(f"wide phase: {time.time() - t0:.1f} s")
 
     t0 = time.time()
-    fit_entry = fit_phase(torch, fit)
+    fit_entries = fit_phase(torch, fit)
     log(f"fit phase: {time.time() - t0:.1f} s")
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
@@ -1904,7 +1993,7 @@ def main(phases=PHASES):
             kernels.append(entry)
     if lf_shapes is not None:
         kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
-    kernels.append(fit_entry)
+    kernels.extend(fit_entries)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

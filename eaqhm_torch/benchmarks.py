@@ -133,7 +133,7 @@ class Launches:
         block_inverse.reset_counts()
         fit.reset_counts()
         out = fn(*args, **kw)
-        plain_fits = fit.iqhm_gram.plain_calls + fit.eaqhm_gram.plain_calls
+        plain_fits = fit.plain_fits()
         for name in self.counts:
             if name.startswith("fit"):
                 # the plain fit serves both kernels' work at once

@@ -52,12 +52,17 @@ KERNELS = {
     }),
     "fit": ("fit.cu", {
         "fit_prepare": [],
-        "fit_basis_eaqhm_f32": [_P] * 10 + [_I, _I, _I, _D, _D, _D, _P],
-        "fit_basis_eaqhm_f64": [_P] * 10 + [_I, _I, _I, _D, _D, _D, _P],
-        "fit_basis_iqhm_f32": [_P] * 9 + [_I, _I, _I, _D, _P],
-        "fit_basis_iqhm_f64": [_P] * 9 + [_I, _I, _I, _D, _P],
-        "fit_gram_c64": [_P] * 5 + [_I, _I, _I, _P],
-        "fit_gram_c128": [_P] * 5 + [_I, _I, _I, _P],
+        "fit_phase_clocks": [_P],
+        "fit_occupancy": [_I, _I],
+        "fit_gram_plan": [_I, _P],
+        "fit_basis_eaqhm_f32": [_P] * 14 + [_I, _I, _I, _L, _L, _L, _D, _D,
+                                            _D, _P],
+        "fit_basis_eaqhm_f64": [_P] * 14 + [_I, _I, _I, _L, _L, _L, _D, _D,
+                                            _D, _P],
+        "fit_basis_iqhm_f32": [_P] * 11 + [_I, _I, _I, _L, _D, _P],
+        "fit_basis_iqhm_f64": [_P] * 11 + [_I, _I, _I, _L, _D, _P],
+        "fit_gram_c64": [_P] * 4 + [_I, _I, _I, _P],
+        "fit_gram_c128": [_P] * 4 + [_I, _I, _I, _P],
     }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],

@@ -32,8 +32,6 @@ from eaqhm_torch.ops import block_inverse, chol, filters, fit, interp, solver
 from eaqhm_torch.utils import io as io_mod
 from eaqhm_torch.utils.progress import progress_bar
 
-DEAD_TRACK_F0 = 140.0    # reference functions.py:209
-DEAD_TRACK_AM = 1e-3     # reference functions.py:210 (10e-4)
 PAGE = 4096              # signal-length quantum of quantize_geometry
 # Harmonic tier lattice of the JAX engine (engine.py:828).
 K_LATTICE = (24, 32, 40, 48, 64, 96, 128, 192, 256)
@@ -291,7 +289,7 @@ def eaqhm_accept(amps, fmis, fmc, dead, h, do_update, Kc: int,
     if voiced is not None:
         a0_val, acc = _mask_voiced(a0_val, acc, voiced)
     first = torch.arange(Kc, device=amps.device)[None, :] == 0
-    fmc_eff = torch.where(dead[:, None] & first, DEAD_TRACK_F0, fmc)
+    fmc_eff = torch.where(dead[:, None] & first, fit.DEAD_TRACK_F0, fmc)
     if isinstance(do_update, torch.Tensor):
         fm = torch.where(do_update[:, None], fmc_eff + fmis, fmc_eff)
     else:
@@ -299,44 +297,22 @@ def eaqhm_accept(amps, fmis, fmc, dead, h, do_update, Kc: int,
     return a0_val, pos.abs(), fm, pos.angle(), acc
 
 
-def _overlay(fm_win, am_win, dead_win, dd, o):
-    """The dead-track bootstrap (fm=140 Hz, am=1e-3 on harmonic 1,
-    functions.py:204-210) on gathered windows, with the reference's
-    left-visibility: a frame's window sees it at dead centers strictly left
-    of its own center, plus its own center when the frame itself is dead.
-    fm_win/am_win: [B, N, K]; dead_win: [B, N] dead centers under the
-    window; dd: [B] this frame dead; o: [N] offsets."""
-    use = dead_win & ((o[None, :] < 0) | ((o[None, :] == 0) & dd[:, None]))
-    first = (torch.arange(fm_win.shape[-1], device=fm_win.device)
-             == 0)[None, None, :]
-    ovl = use[..., None] & first
-    return (torch.where(ovl, DEAD_TRACK_F0, fm_win),
-            torch.where(ovl, DEAD_TRACK_AM, am_win))
-
-
-def dead_overlay_windows(fm_k, am_k, rows, dead_center, dd, o):
-    """Gather per-frame track windows with the dead-track overlay (JAX
-    eaqhm_tpu/models/engine.py:149-164).  fm_k/am_k: [L, K] track tables;
-    rows: [B, N] gather rows; dead_center: [L] dead analysis centers; dd:
-    [B] this frame dead; o: [N] offsets."""
-    return _overlay(fm_k[rows], am_k[rows], dead_center[rows], dd, o)
-
-
 def _iqhm_stage(s, centers, f0, K, wl, W: int, Kc: int, fs: float,
                 chunk: int, method):
     """Adaptation-0 fits of one tier: batched stationary LS + acceptance.
     Reference functions.py:183-324 (a == 0 branch)."""
     dtype = s.dtype
-    o = torch.arange(-W, W + 1, device=s.device)
-    n = _batch_frames(chunk, len(o), Kc, solver.complex_dtype(dtype), s.device)
+    n = _batch_frames(chunk, 2 * W + 1, Kc, solver.complex_dtype(dtype),
+                      s.device)
+    utt = torch.zeros(min(n, centers.shape[0]), dtype=torch.long,
+                      device=s.device)
     xs = []
     for b0 in range(0, centers.shape[0], n):
         c = centers[b0:b0 + n]
-        rows = (c[:, None] + o[None, :]).clamp(0, s.shape[0] - 1)
         with record_function("eaqhm/fit"):
-            R, rhs, dinv = solver.iqhm_gram(
-                s[rows], o, wl[b0:b0 + n].clamp(min=1), f0[b0:b0 + n],
-                K[b0:b0 + n], fs, Kc, dtype=dtype)
+            R, rhs, dinv = solver.iqhm_gram_tables(
+                s, utt[:len(c)], c, W, wl[b0:b0 + n].clamp(min=1),
+                f0[b0:b0 + n], K[b0:b0 + n], fs, Kc, dtype=dtype)
         with record_function("eaqhm/solve"):
             xs.append(solver.solve_gram(R, rhs, dtype, method=method) * dinv)
     amps, _ = solver.split_amps(torch.cat(xs), Kc)
@@ -354,30 +330,24 @@ def _eaqhm_bucket(s, fm_current, am_current, centers, wl, dead, mask_k,
     bootstrap values at dead centers strictly left of its own center, plus
     its own center when the frame itself is dead.  dead/mask_k/dead_center
     come from all analyzed frames (windows overlap other tiers).  Track
-    columns beyond this tier's Kc are zero, so the windows are sliced.
+    columns beyond this tier's Kc are zero, so the fit reads the tables'
+    first Kc columns (through their stride: nothing is gathered or copied).
     """
     dtype = s.dtype
-    L = s.shape[0]
-    o = torch.arange(-W, W + 1, device=s.device)
-    fm_k = fm_current[:, :Kc]
-    am_k = am_current[:, :Kc]
-    fmc = fm_k[centers]
-    # one row gather per batch: (fm, am, s, dead) packed in one table
-    Dtab = torch.cat([fm_k, am_k, s[:, None], dead_center.to(dtype)[:, None]],
-                     dim=1)
-    n = _batch_frames(chunk, len(o), Kc, solver.complex_dtype(dtype), s.device)
+    fmc = fm_current[centers, :Kc]
+    n = _batch_frames(chunk, 2 * W + 1, Kc, solver.complex_dtype(dtype),
+                      s.device)
+    utt = torch.zeros(min(n, centers.shape[0]), dtype=torch.long,
+                      device=s.device)
     parts = []
     for b0 in range(0, centers.shape[0], n):
         c = centers[b0:b0 + n]
-        dd = dead[b0:b0 + n]
         mk = mask_k[b0:b0 + n]
         with record_function("eaqhm/fit"):
-            d = Dtab[(c[:, None] + o[None, :]).clamp(0, L - 1)]  # [B,N,2Kc+2]
-            fm_win, am_win = _overlay(d[..., :Kc], d[..., Kc:2 * Kc],
-                                      d[..., 2 * Kc + 1] != 0, dd, o)
-            R, rhs, dinv = solver.eaqhm_gram(
-                d[..., 2 * Kc], fm_win, am_win, o, wl[b0:b0 + n].clamp(min=1),
-                mk, fs, dtype=dtype)
+            R, rhs, dinv = solver.eaqhm_gram_tables(
+                s, fm_current, am_current, dead_center, utt[:len(c)], c,
+                dead[b0:b0 + n], W, wl[b0:b0 + n].clamp(min=1), mk, fs,
+                dtype=dtype)
         with record_function("eaqhm/solve"):
             x = solver.solve_gram(R, rhs, dtype, method=method) * dinv
         amps, _, fmis = solver.eaqhm_extract(x, mk, Kc, fs)

@@ -31,7 +31,8 @@ from eaqhm_torch.ops.block_inverse import (  # noqa: F401  (re-exported)
 from eaqhm_torch.ops.chol import chol_solve, chol_subst
 from eaqhm_torch.ops.fit import (  # noqa: F401  (re-exported)
     _mv, blackman_window, build_gram_split, complex_dtype, eaqhm_gram,
-    hamming_window, iqhm_gram, repair_tracks)
+    eaqhm_gram_tables, hamming_window, iqhm_gram, iqhm_gram_tables,
+    repair_tracks)
 
 _RIDGE = 1e-5
 

@@ -260,16 +260,12 @@ def _pad_amps(a, Kc: int, K_t: int):
     return out
 
 
-def _solve_tier(g, s_flat, L: int, fit, geom: BatchGeometry, dtype):
-    """Run ``fit(rows, o, sl)`` over the tier's frames in batches under the
-    device's budget; returns the concatenated results."""
-    o = torch.arange(-g["W"], g["W"] + 1, device=s_flat.device)
-    rows = g["b"][:, None] * L + (g["c"][:, None] + o[None, :]).clamp(0,
-                                                                      L - 1)
-    n = engine_mod._batch_frames(geom.chunk, len(o), g["K"],
-                                 solver.complex_dtype(dtype), s_flat.device)
-    parts = [fit(rows[i:i + n], o, slice(i, i + n))
-             for i in range(0, rows.shape[0], n)]
+def _solve_tier(g, fit, geom: BatchGeometry, dtype, device):
+    """Run ``fit(sl)`` over the tier's frames in batches under the device's
+    budget; returns the concatenated results."""
+    n = engine_mod._batch_frames(geom.chunk, 2 * g["W"] + 1, g["K"],
+                                 solver.complex_dtype(dtype), device)
+    parts = [fit(slice(i, i + n)) for i in range(0, len(g["c"]), n)]
     return [torch.cat(p) for p in zip(*parts)]
 
 
@@ -294,16 +290,16 @@ def _local_iqhm(shard: _Shard, geom: BatchGeometry, dtype):
     """Adaptation-0 solves of this shard's live chunks (reference
     functions.py:183-196), every chunk in its tier; the shared acceptance
     core masks the non-analyzed frames of a live chunk."""
-    L, Kc = geom.length, geom.Kc
-    s_flat = shard.s.reshape(-1)
+    Kc = geom.Kc
     outs = []
     for g in shard.groups:
-        def fit(rows, o, sl, g=g):
-            a, _ = solver.iqhm_batch(s_flat[rows], o, g["wl"][sl],
-                                     g["f0"][sl], g["Kf"][sl], geom.fs,
-                                     g["K"], dtype=dtype)
-            return (a,)
-        amps, = _solve_tier(g, s_flat, L, fit, geom, dtype)
+        def fit(sl, g=g):
+            R, rhs, dinv = solver.iqhm_gram_tables(
+                shard.s, g["b"][sl], g["c"][sl], g["W"], g["wl"][sl],
+                g["f0"][sl], g["Kf"][sl], geom.fs, g["K"], dtype=dtype)
+            x = solver.solve_gram(R, rhs, dtype) * dinv
+            return (solver.split_amps(x, g["K"])[0],)
+        amps, = _solve_tier(g, fit, geom, dtype, shard.device)
         outs.append(engine_mod.iqhm_accept(_pad_amps(amps, Kc, g["K"]),
                                            g["f0"], Kc, voiced=g["vo"]))
     return _scatter(shard, geom, outs, dtype)
@@ -317,9 +313,7 @@ def _local_eaqhm(shard: _Shard, geom: BatchGeometry, fm_cur, am_cur, h,
     do_update: [B_loc].  A frame of tier t never carries live harmonics
     above K_t, so the tier's columns are exact."""
     L, Kc = geom.length, geom.Kc
-    s_flat = shard.s.reshape(-1)
     fm_k = fm_cur[:, :, :Kc]
-    am_k = am_cur[:, :, :Kc]
     # dead centers over every frame of each utterance (windows cross
     # shards and tiers)
     fmc_all = fm_k[:, shard.centers]                        # [B_loc, No, Kc]
@@ -328,9 +322,6 @@ def _local_eaqhm(shard: _Shard, geom: BatchGeometry, fm_cur, am_cur, h,
     dead_center = torch.zeros((shard.B_loc, L), dtype=torch.bool,
                               device=shard.device)
     dead_center[:, shard.centers] = dead_all
-    dead_flat = dead_center.reshape(-1)
-    fm_flat = fm_k.reshape(-1, Kc)
-    am_flat = am_k.reshape(-1, Kc)
     first = torch.arange(Kc, device=shard.device)[None, :] == 0
     outs = []
     for g in shard.groups:
@@ -340,15 +331,16 @@ def _local_eaqhm(shard: _Shard, geom: BatchGeometry, fm_cur, am_cur, h,
         dead = g["vo"] & ~mask.any(dim=1)
         mask = torch.where(dead[:, None], first, mask)
 
-        def fit(rows, o, sl, g=g, K_t=K_t, dead=dead, mask=mask):
-            fm_win, am_win = engine_mod.dead_overlay_windows(
-                fm_flat[:, :K_t], am_flat[:, :K_t], rows, dead_flat,
-                dead[sl], o)
-            a, _, fmi = solver.eaqhm_batch(
-                s_flat[rows], fm_win, am_win, o, g["wl"][sl],
-                mask[sl, :K_t], geom.fs, dtype=dtype)
+        def fit(sl, g=g, K_t=K_t, dead=dead, mask=mask):
+            mk = mask[sl, :K_t]
+            R, rhs, dinv = solver.eaqhm_gram_tables(
+                shard.s, fm_cur, am_cur, dead_center, g["b"][sl],
+                g["c"][sl], dead[sl], g["W"], g["wl"][sl], mk, geom.fs,
+                dtype=dtype)
+            x = solver.solve_gram(R, rhs, dtype) * dinv
+            a, _, fmi = solver.eaqhm_extract(x, mk, K_t, geom.fs)
             return a, fmi
-        amps, fmis = _solve_tier(g, s_flat, L, fit, geom, dtype)
+        amps, fmis = _solve_tier(g, fit, geom, dtype, shard.device)
         fmis_p = fmis.new_zeros((fmis.shape[0], Kc))
         fmis_p[:, :K_t] = fmis
         outs.append(engine_mod.eaqhm_accept(

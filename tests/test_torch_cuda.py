@@ -186,10 +186,13 @@ def test_cuda_block_inverse_path_table_matches_the_library():
 # order); complex64 also rounds its phase cumsum in another order than
 # torch.cumsum and sums R over N <= 2897 rows in float32
 _FIT_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
-# (N, Kc, fs) of the main paths' fit batches: SA19's tiers and the stress
-# tiers at 16 kHz, the wide tiers at 22.05, 44.1 and 48 kHz
-_FIT_SHAPES = ((241, 32, 16000.0), (257, 40, 16000.0), (305, 48, 16000.0),
-               (609, 96, 16000.0), (689, 128, 16000.0), (961, 192, 22050.0),
+# (N, Kc, fs) of the main paths' fit batches: SA19's, the corpus paths',
+# the presets' and the stress tiers at 16 kHz, the wide tiers at 22.05,
+# 44.1 and 48 kHz
+_FIT_SHAPES = ((241, 24, 16000.0), (241, 31, 16000.0), (241, 32, 16000.0),
+               (257, 40, 16000.0), (301, 47, 16000.0), (301, 59, 16000.0),
+               (305, 48, 16000.0), (401, 64, 16000.0), (609, 96, 16000.0),
+               (689, 128, 16000.0), (961, 192, 22050.0),
                (1905, 323, 44100.0), (2897, 487, 48000.0))
 
 
@@ -267,3 +270,104 @@ def test_cuda_fit_matches_plain_version(dtype, mode):
         for name, g, w in zip(("R", "rhs", "dinv"), got, want):
             err = _rel(g, w)
             assert err <= _FIT_TOL[dtype], (mode, N, Kc, name, err)
+
+
+def table_inputs(rng, B, N, Kc, fs):
+    """One batch of the table fits' inputs (numpy): two utterances of L =
+    3N samples in one table, fm / am tables with Kc + 5 columns (the fit
+    reads the first Kc through the stride), frames with windows clamped at
+    both ends of each utterance, dead centres left of, at and right of
+    frames' centres, dead frames, zero gaps and a run to an utterance's
+    end, f0 in the upper half of the tier's range."""
+    W = (N - 1) // 2
+    L = 3 * N
+    utt = np.arange(B) % 2
+    ctr = rng.integers(0, L, size=B)
+    ctr[:2] = (W // 3, L - 1 - W // 4)                # clamped at both ends
+    t = np.arange(L)
+    f0 = (0.5 + 0.5 * rng.random(size=(2, 1))) * (fs / 2 / Kc)
+    f0_t = f0 * (1.0 + 0.05 * np.sin(2 * np.pi * t / (L / 3.0)))
+    k = np.arange(1, Kc + 6)
+    fm = f0_t[..., None] * k + rng.normal(scale=2.0, size=(2, L, Kc + 5))
+    am = rng.uniform(0.01, 0.5, size=(2, L, Kc + 5))
+    gaps = rng.random(size=fm.shape) < 0.1
+    gaps[1, L - N:, 1 % Kc] = True
+    gaps[:, :, 0] |= rng.random(size=(2, L)) < 0.2
+    fm[gaps] = 0.0
+    am[gaps] = 0.0
+    dead = rng.random(size=(2, L)) < 0.05
+    for b in range(2, B):
+        dead[utt[b], np.clip(ctr[b] + np.array([-7, 0, 5]), 0, L - 1)] = True
+    dd = rng.random(size=B) < 0.5
+    f0b = f0[utt, 0] * (1.0 + 0.05 * np.sin(2 * np.pi * ctr / (L / 3.0)))
+    K = np.minimum(Kc, np.floor(fs / 2 / f0b)).astype(np.int64)
+    colmask = fm[utt, ctr, :Kc] != 0
+    colmask[:, 0] = True
+    colmask[B - 1] = False
+    wl = rng.integers(max(1, W // 2), W + 1, size=B)
+    return dict(s=rng.normal(size=(2, L)), fm=fm, am=am, dead=dead, utt=utt,
+                ctr=ctr, dd=dd, wl=wl, f0=f0b, K=K, colmask=colmask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["iqhm", "eaqhm"])
+def test_cuda_table_fit_matches_plain_version(dtype, mode):
+    """The engines' entry points (iqhm_gram_tables / eaqhm_gram_tables: the
+    kernels read the signal and track tables, the overlay applied in
+    fit_basis) against the plain version (the torch-op gather and overlay,
+    then the torch-op fit) on the same tables, at every main-path (N, Kc)
+    at its own sampling rate: R, rhs and dinv to _FIT_TOL of their largest
+    entry, R Hermitian, one launch of each kernel per call, none served by
+    the plain version."""
+    _needs_cuda()
+    from eaqhm_torch.ops import fit
+    rng = np.random.default_rng(29)
+    for N, Kc, fs in _FIT_SHAPES:
+        W, B = (N - 1) // 2, 6
+        d = {k: torch.as_tensor(v, device="cuda")
+             for k, v in table_inputs(rng, B, N, Kc, fs).items()}
+        for k in ("s", "fm", "am", "wl", "f0"):
+            d[k] = d[k].to(dtype)
+        fit.reset_counts()
+        if mode == "iqhm":
+            args = (d["s"], d["utt"], d["ctr"], W, d["wl"], d["f0"], d["K"],
+                    fs, Kc)
+            got = fit.iqhm_gram_tables(*args, dtype=dtype)
+            s_win = fit.gather_windows(d["s"], d["utt"], d["ctr"], W)
+            o = torch.arange(-W, W + 1, device="cuda")
+            want = fit.iqhm_gram_reference(s_win, o, d["wl"], d["f0"],
+                                           d["K"], fs, Kc, dtype=dtype)
+        else:
+            args = (d["s"], d["fm"], d["am"], d["dead"], d["utt"], d["ctr"],
+                    d["dd"], W, d["wl"], d["colmask"], fs)
+            got = fit.eaqhm_gram_tables(*args, dtype=dtype)
+            win = fit.gather_windows(d["s"], d["utt"], d["ctr"], W, d["fm"],
+                                     d["am"], d["dead"], d["dd"], Kc)
+            o = torch.arange(-W, W + 1, device="cuda")
+            want = fit.eaqhm_gram_reference(*win, o, d["wl"], d["colmask"],
+                                            fs, dtype=dtype)
+        torch.cuda.synchronize()
+        assert (fit.fit_basis.launches, fit.fit_gram.launches) == (1, 1)
+        assert fit.plain_fits() == 0
+        R = got[0]
+        assert torch.equal(R, R.mH), (N, Kc)
+        for name, g, w in zip(("R", "rhs", "dinv"), got, want):
+            err = _rel(g, w)
+            assert err <= _FIT_TOL[dtype], (mode, N, Kc, name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_fit_gram_plan_matches_the_library():
+    """fit_gram's plan (tiles, live pieces, piece slots) as the library
+    computes it equals ops.fit.gram_plan at every main-path Kc, and the
+    executed work stays within 1.35 of the least."""
+    _needs_cuda()
+    import ctypes
+    from eaqhm_torch.ops import fit
+    lib = fit.library("cuda")
+    out = (ctypes.c_longlong * 3)()
+    for _, Kc, _ in _FIT_SHAPES:
+        assert lib.fit_gram_plan(Kc, out) == 0
+        assert tuple(out) == fit.gram_plan(Kc), Kc
+        assert fit.gram_work_ratio(Kc) <= 1.35, Kc
