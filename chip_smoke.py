@@ -110,17 +110,32 @@
    library's own plan (asserted <= 1.35); the stress fit per eaQHM
    adaptation through the kernels and the plain version at the stress
    runs' batches, beside the kernels before their redesign for Hopper.
-14. One JSON line of the kernels (each kernel at every launch the paths
+14. Tracks phase: every path above asserts that the three tracks kernels
+   (track_spline, track_synth, track_srer: ops.tracks) launched, spline and
+   synth once each per adaptation, graph replays included (each replay of
+   a fused loop launches the three), and that the plain version served no
+   stage; stress prints the tracks span per eaQHM adaptation and the peak
+   device memory of the stage beside the torch-op stage's.  Then the
+   kernels against the plain version at every launch shape and mode the
+   paths made (G, n, K, L, step, fs, type), on seeded anchor grids of that
+   shape (tests/torch_track_cases.py): track_spline's M, every output of
+   the stage and the SRER, to 1e-10 (float64) / 2e-5 (float32) of the
+   largest entry and 1e-9 / 1e-4 dB, float32's flipped segments (the
+   phase-end round at a tie) counted, fewer than 1 in 10^4; per shape each
+   kernel's ms beside the plain version's and its bound.
+15. One JSON line of the kernels (each kernel at every launch the paths
    made, the block inverse per type at every call, fit_basis and fit_gram
-   over every shape, launches counted per entry point and per path, counts
-   set to 0 just before each path and read just after), the nvidia-smi
-   line, and as the last line {"ok": true, "device": {...}}.
+   over every shape, the tracks kernels over every shape, launches counted
+   per entry point and per path, counts set to 0 just before each path and
+   read just after), the nvidia-smi line, and as the last line
+   {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases stress presets    # some phases only
 
 runs the setup and the phases named (base: 2-7; corpus: 8; stress: 9;
-presets: 10; corpus64: 11; wide: 12), the fit phase over their fits and a
-kernels line over them; the default is all of them.  Any failure raises and exits non-zero before the last line.
+presets: 10; corpus64: 11; wide: 12), the fit and tracks phases over their
+launches and a kernels line over them; the default is all of them.  Any
+failure raises and exits non-zero before the last line.
 Without CUDA, or outside a checkout of the repository, it fails.
 """
 import contextlib
@@ -143,8 +158,8 @@ FS = 16000
 # tensor cores, since TF32 stays off; float64 on the tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"complex64": 67e12, "complex128": 67e12,
-               # FP64 outside the tensor cores (the IIR recursion)
-               "float64": 34e12}
+               # outside the tensor cores (the IIR recursion, the tracks)
+               "float64": 34e12, "float32": 67e12}
 KERNEL_TOL = {"complex64": 2e-4, "complex128": 1e-10}
 RIDGED_TOL = 1e-2
 SRER_TOL_DB = 1e-6
@@ -202,6 +217,23 @@ FIT_TOL = {"float64": 1e-12, "float32": 3e-5}
 # before their redesign for Hopper (the spans, PERF.md, NVIDIA H100 80GB
 # HBM3, 700.00 W)
 FIT_BEFORE_S = {"float32": "1.3488", "float64": "1.8904"}
+# tracks kernel launches per path: name -> (track_spline shapes, track_synth
+# shapes (G, n, K, L, step, type), track_srer shapes, launches in graph
+# replays)
+TRACK_RUNS = {}
+# the tracks kernels against their plain version (of the largest entry of
+# each output): float64 to rounding; float32 composes M's affine maps, the
+# in-segment phase sum and the K-sum in other orders (a few float32 ulps of
+# the phase, times fs / 2 pi in fm_current), about ten times the largest
+# gap of the CUDA tests; a segment whose phase-end round flips at a float32
+# tie (fm_current off by more than 1e-3 fs) is counted and left out
+TRACK_TOL = {"float64": 1e-10, "float32": 2e-5}
+TRACK_SRER_TOL_DB = {"float64": 1e-9, "float32": 1e-4}
+# the stress stage per eaQHM adaptation and its peak device memory as torch
+# ops, before the kernels (tools/profile_torch_adapt.py --signal stress
+# --peaks, PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
+TRACKS_BEFORE = {"float64": ("0.1594 s", "18.53 GiB"),
+                 "float32": ("0.1315 s", "10.05 GiB")}
 
 
 def log(*a):
@@ -561,6 +593,7 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
     shapes = (list(chol.chol_solve.shapes), list(chol.chol_subst.shapes))
     bi_calls, rec["bi"], rec["bi_replayed"] = take_bi(name)
     rec["fit"] = take_fit(name)[1]
+    rec["tracks"] = len(take_tracks(name)[1])
     assert len(shapes[0]) == rec["launches"]
     assert len(shapes[1]) == rec["subst"]
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
@@ -572,6 +605,7 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
         torch.cuda.synchronize()
         warm_s.append(time.time() - t0)
     _, fit_warm, _, fit_replayed = take_fit(name + " (warm)", keep=False)
+    tr_warm = take_tracks(name + " (warm)", keep=False)
     from eaqhm_torch.ops import block_inverse
     rec["warm"] = {"launches": chol.chol_solve.launches,
                    "replayed": chol.chol_solve.replayed,
@@ -579,13 +613,15 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
                    "subst_replayed": chol.chol_subst.replayed,
                    "bi": block_inverse.block_inverse_solve.launches,
                    "bi_replayed": block_inverse.block_inverse_solve.replayed,
-                   "fit": fit_warm, "fit_replayed": fit_replayed}
+                   "fit": fit_warm, "fit_replayed": fit_replayed,
+                   "tracks": len(tr_warm[1]), "tracks_replayed": tr_warm[3]}
     log(f"path {name}: srer={res.srer} launches (first call): chol_solve "
         f"{rec['launches']} ({rec['replayed']} in graph replays) chol_subst "
         f"{rec['subst']} ({rec['subst_replayed']} in replays) block_inverse "
         f"{rec['bi']} ({rec['bi_replayed']} in replays) over {len(bi_calls)}"
         f" calls {dict(Counter(bi_calls))}, fit_basis and fit_gram "
-        f"{rec['fit']} each; warm call "
+        f"{rec['fit']} each, track_spline and track_synth {rec['tracks']} "
+        f"each; warm call "
         f"{rec['warm']} (B, M, path) "
         f"{dict(Counter(x[:3] for x in shapes[0]))} "
         f"first_call_s={first_s:.3f} warm_s={[round(w, 4) for w in warm_s]} "
@@ -642,6 +678,8 @@ def check_fused(torch, chol, eaqhm_torch, sig, res, warm, rec, **kw):
     assert per_replay > 0 and w["replayed"] == per_replay * (n - 1), w
     assert w["fit_replayed"] > 0 and \
         w["fit_replayed"] % warm.fused["replays"] == 0, w
+    # each replay launches the three tracks kernels
+    assert w["tracks_replayed"] == 3 * warm.fused["replays"], w
     reset_counts(chol)
     eaqhm_torch.analyze(sig, FS, eaqhm_torch.EaqhmConfig(
         gender="female", max_adaptations=0, **kw), device="cuda")
@@ -732,12 +770,14 @@ def chol_shapes(chol):
 
 
 def reset_counts(chol):
-    """Every kernel count of the fit and the solve to 0: the fit kernels',
-    the Cholesky kernel's and the block inverse's."""
-    from eaqhm_torch.ops import block_inverse, fit
+    """Every kernel count of the fit, the solve and the tracks stage to 0:
+    the fit kernels', the Cholesky kernel's, the block inverse's and the
+    tracks kernels'."""
+    from eaqhm_torch.ops import block_inverse, fit, tracks
     chol.reset_counts()
     block_inverse.reset_counts()
     fit.reset_counts()
+    tracks.reset_counts()
 
 
 def take_fit(name, keep=True):
@@ -755,6 +795,24 @@ def take_fit(name, keep=True):
     rec = (list(fb.shapes), fb.launches, fg.launches, fb.replayed)
     if keep:
         FIT_RUNS[name] = rec
+    return rec
+
+
+def take_tracks(name, keep=True):
+    """The tracks kernels' launches since the counts were set to 0: each of
+    the three launched (graph replays included), spline and synth once
+    each per stage, none served by the plain version; kept in TRACK_RUNS
+    under name (keep) for the tracks phase and the kernels line."""
+    from eaqhm_torch.ops import tracks
+    sp, sy, sr = tracks.track_spline, tracks.track_synth, tracks.track_srer
+    assert tracks.plain_calls() == 0, (name, tracks.plain_calls())
+    assert sp.launches == sy.launches > 0 and sr.launches > 0, (
+        name, sp.launches, sy.launches, sr.launches)
+    assert len(sy.shapes) == sy.launches and len(sr.shapes) == sr.launches
+    rec = (list(sp.shapes), list(sy.shapes), list(sr.shapes),
+           sp.replayed + sy.replayed + sr.replayed)
+    if keep:
+        TRACK_RUNS[name] = rec
     return rec
 
 
@@ -899,6 +957,7 @@ def bi_fixture_phase(torch, chol, eaqhm_torch, pref):
     torch.cuda.synchronize()
     calls, launches, _ = take_bi("float64_block_inverse", expect=True)
     take_fit("float64_block_inverse")
+    take_tracks("float64_block_inverse")
     assert chol.chol_solve.launches == 0
     d_srer = float(np.max(np.abs(np.asarray(res.srer) - pref[p + "srer"])))
     d_wave = float(np.max(np.abs(res.s_recon - pref[p + "s_recon"])))
@@ -953,6 +1012,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
     shapes = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
     take_fit("float64_streams")
+    take_tracks("float64_streams")
     assert set(four.failed) == {len(corpus)}, four.failed
     check_streams(four, seq, idx, "streams 4 workers")
     rates["4 workers"] = four.audio_seconds_per_second
@@ -971,6 +1031,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
             f"per worker {fused.per_device}")
         assert chol.chol_solve.replayed > 0
         assert take_fit(f"float64_fused_streams_{rep}", keep=False)[3] > 0
+        assert take_tracks(f"float64_fused_streams_{rep}", keep=False)[3] > 0
     log(f"streams: audio-s/s over {len(corpus)} utterances ({audio:.1f} s "
         f"of audio, float64, female, max_adaptations=6): "
         f"{ {k: round(v, 3) for k, v in rates.items()} }; per worker "
@@ -1000,6 +1061,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     sh64 = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == 0
     take_fit("float64_batch")
+    take_tracks("float64_batch")
     t0 = time.time()
     warm = batch_engine.analyze_batch(sigs, FS, cfg64, device="cuda")
     warm_s = time.time() - t0
@@ -1025,6 +1087,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     torch.cuda.synchronize()
     sh32 = chol_shapes(chol)
     take_fit("float32_batch")
+    take_tracks("float32_batch")
     bi32 = take_bi("float32_batch", expect=True)
     d32 = out32.final_srer - out.final_srer
     log(f"batch float32 (default solve): final SRER "
@@ -1076,6 +1139,7 @@ def mesh_phase(torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod,
         torch.cuda.synchronize()
         shapes = chol_shapes(chol)
         take_fit("float64_mesh")
+        take_tracks("float64_mesh")
         d_srer = float(np.max(np.abs(out.srer - out_none.srer)))
         d_wave = float(np.max(np.abs(out.s_recon - out_none.s_recon)))
         log(f"mesh {tuple(mesh.shape)} (NCCL, world 1) vs mesh=None: "
@@ -1208,6 +1272,38 @@ class SpanTimer:
         return out
 
 
+class StagePeak:
+    """The peak device memory of the tracks stage (engine._Adapter._finish)
+    and of the whole call: the allocator's peak is reset just before every
+    stage call and read just after it (the allocator counts on the host,
+    so nothing synchronizes); ``call`` folds every reading in."""
+
+    def __init__(self, torch, engine):
+        self.torch = torch
+        self.engine = engine
+        self.stage = 0
+        self.call = 0
+
+    def __enter__(self):
+        torch, adapter = self.torch, self.engine._Adapter
+        orig = self.orig = adapter._finish
+
+        def finish(ad, *a, **kw):
+            self.call = max(self.call, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = orig(ad, *a, **kw)
+            self.stage = max(self.stage, torch.cuda.max_memory_allocated())
+            return out
+
+        adapter._finish = finish
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._Adapter._finish = self.orig
+        self.call = max(self.call, self.stage,
+                        self.torch.cuda.max_memory_allocated())
+
+
 def fixture_group(ref, prefix):
     """The entries of one fixture group, keys without the prefix."""
     return {k[len(prefix):]: ref[k] for k in ref.files
@@ -1237,7 +1333,8 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(chol)
-        with SpanTimer(torch, engine) as spans:
+        with SpanTimer(torch, engine) as spans, \
+                StagePeak(torch, engine) as stage_peak:
             t0 = time.time()
             res = eaqhm_torch.analyze(s, FS, cfg, device="cuda")
             torch.cuda.synchronize()
@@ -1247,7 +1344,8 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         shapes[f"{dt}_stress"] = sh
         bi_calls, bi_n, _ = take_bi(f"{dt}_stress", expect=dt == "float32")
         take_fit(f"{dt}_stress")
-        peak = torch.cuda.max_memory_allocated()
+        take_tracks(f"{dt}_stress")
+        peak = stage_peak.call
         per = spans.per_adaptation()
         assert len(per) == len(res.srer) == len(res.metrics), (len(per),
                                                                 res.srer)
@@ -1268,7 +1366,12 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         STRESS_EAQHM[dt] = len(res.srer) - 1
         log(f"stress {dt} per eaQHM adaptation (mean of {len(eaqhm)}): solve "
             f"{np.mean([p.get('solve', 0.0) for p in eaqhm]):.4f} s beside "
-            f"fit {np.mean([p.get('fit', 0.0) for p in eaqhm]):.4f} s")
+            f"fit {np.mean([p.get('fit', 0.0) for p in eaqhm]):.4f} s and "
+            f"tracks {np.mean([p.get('tracks', 0.0) for p in eaqhm]):.4f} s "
+            f"(the torch-op stage before the kernels: "
+            f"{TRACKS_BEFORE[dt][0]}); peak device memory of the tracks "
+            f"stage {stage_peak.stage / 2**30:.2f} GiB (before the kernels "
+            f"{TRACKS_BEFORE[dt][1]}), of the call {peak / 2**30:.2f} GiB")
         assert np.all(np.isfinite(res.srer))
         assert np.all(np.isfinite(res.s_recon))
         results[dt] = res
@@ -1298,6 +1401,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
     torch.cuda.synchronize()
     shapes["float64_stress_slice"] = chol_shapes(chol)
     take_fit("float64_stress_slice")
+    take_tracks("float64_stress_slice")
     log(f"stress slice (samples {a}-{b}, max_adaptations="
         f"{cfg.max_adaptations}): {time.time() - t0:.3f} s, tiers "
         f"{res.tiers}, srer {res.srer}")
@@ -1339,6 +1443,7 @@ def presets_phase(torch, chol, eaqhm_torch, filters, benchmarks, sig,
         name = f"{path}_{g}_{'fc0' if cfg.fc == 0 else 'fc30'}"
         bi = take_bi(name, expect=path.startswith("float32"))
         take_fit(name)
+        take_tracks(name)
         log(f"presets {g} {what}: {el:.3f} s, tiers {res.tiers}, srer "
             f"{res.srer}, launches {len(sh[0])} + {len(sh[1])} (B, M) "
             f"{dict(Counter(x[:2] for x in sh[0]))}, block_inverse {bi[1]} "
@@ -1377,7 +1482,8 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     line, seq = benchmarks.bench_config3(run, batch=CORPUS64_N, repeats=1)
     assert line["path"] == "sequential_per_utterance", line
     assert line["kernels"]["chol_solve"]["launches"] > 0
-    for k in ("fit_basis", "fit_gram"):
+    for k in ("fit_basis", "fit_gram", "track_spline", "track_synth",
+              "track_srer"):
         assert line["kernels"][k]["launches"] > 0, line["kernels"]
         assert line["kernels"][k]["plain_calls"] == 0, line["kernels"]
     sigs, fs, _ = benchmarks.corpus(run, CORPUS64_N, 2.0)
@@ -1390,6 +1496,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     sh = chol_shapes(chol)
     assert chol.chol_solve.plain_calls == 0
     take_fit("float64_batch64")
+    take_tracks("float64_batch64")
     t0 = time.time()
     batch_engine.analyze_batch(sigs, fs, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1410,6 +1517,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
         benchmarks.Run("cuda", dtype="float32"), batch=CORPUS64_N, repeats=1)
     bi = take_bi("float32_corpus64", expect=True)
     take_fit("float32_corpus64")
+    take_tracks("float32_corpus64")
     d32 = np.asarray(seq32["final_srer"]) - np.asarray(seq["final_srer"])
     d_mean = line32["srer_mean_db"] - line["srer_mean_db"]
     log(f"corpus-64 float32 (default solve, sequential): {line32['value']} "
@@ -1540,6 +1648,7 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
             shapes[path] = sh
             bi = take_bi(path, expect=dt == "float32" and solve32 is None)
             take_fit(path)
+            take_tracks(path)
             log(f"{what}: {seconds:g} s at {fs} Hz, wall {wall:.3f} s, peak "
                 f"device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tiers "
@@ -1791,6 +1900,163 @@ def fit_phase(torch, fit):
     return entries
 
 
+def tracks_inputs(torch, key, seed):
+    """The anchors of one tracks launch (the shape and mode the paths
+    launched) on the card: tests/torch_track_cases.anchor_case at that
+    shape, masked as the launch's caller masks them."""
+    from torch_track_cases import anchor_case
+    G, n, K, L, step, fs, (dc, anchors, dense, acc, voiced), tname = key
+    dt = getattr(torch, tname)
+    c = anchor_case(seed, G=G, n=n, K=K, step=step,
+                    extra=L - (n - 1) * step - 1, fs=fs)
+    t = {k: torch.as_tensor(c[k], device="cuda") for k in c
+         if isinstance(c[k], np.ndarray)}
+    for k in ("am", "fm", "ph", "a0", "det"):
+        t[k] = t[k].to(dt)
+    if not acc:
+        for k in ("am", "fm", "ph"):
+            t[k] = torch.where(t["acc"], t[k], 0)
+    if not voiced:
+        t["a0"] = torch.where(t["voiced"], t["a0"], 0)
+    args = (t["am"], t["fm"], t["ph"], t["a0"], step, fs, L)
+    kw = dict(acc=t["acc"] if acc else None,
+              voiced=t["voiced"] if voiced else None)
+    mode = dict(dc=dc, anchors=anchors, dense=dense)
+    return t, args, kw, mode
+
+
+def tracks_costs(key, isz):
+    """(bytes, operations) of track_spline, track_synth and track_srer at
+    one launch: the anchors (and masks) read once and each output written
+    once; the spline about 12 operations an anchor of a column, the synth
+    one cos per (row, column), the SRER 4 operations a sample."""
+    G, n, K, L, step, fs, (dc, anchors, dense, acc, voiced), _ = key
+    C = G * K
+    masks = (C * n if acc else 0) + (G * n if voiced else 0)
+    spline = ((2 * C * n + G * n) * isz + masks + n * (C + G) * isz,
+              12 * n * (C + G))
+    outs = 2 + 2 * int(dense)
+    synth = ((3 * C * n + G * n + n * (C + G)) * isz + masks
+             + (outs * C * L + G * L * (1 + int(dc == "apart"))) * isz
+             + (3 * C * n + G * n) * isz * int(anchors), C * L)
+    srer = (2 * G * L * isz + G * isz, 4 * G * L)
+    return spline, synth, srer
+
+
+def tracks_phase(torch, tracks):
+    """The tracks kernels against their plain version at every launch shape
+    and mode the paths made (TRACK_RUNS), on seeded anchor grids drawn at
+    that shape (tests/torch_track_cases.py: runs of every length, a column
+    with no run, runs to both ends, values outside the acceptance): M of
+    track_spline against the plain spline, every output of the stage
+    against the plain stage (TRACK_TOL of the largest entry; float32's
+    flipped segments counted, asserted fewer than 1 in 10^4 pair segments,
+    and left out), the SRER against the plain SRER (TRACK_SRER_TOL_DB).
+    Per shape the kernels' ms beside the plain version's and the bounds.
+    Returns the three kernels-line entries."""
+    from torch_track_cases import stage_errors
+    counts = Counter(sh for rec in TRACK_RUNS.values() for sh in rec[1])
+    keys = ("ms", "plain_ms", "t_bytes", "t_ops")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("spline", "synth", "srer")}
+    err = {"spline": 0.0, "synth": 0.0, "srer": 0.0}
+    flips_all = pairs_all = 0
+    for i, (key, count) in enumerate(sorted(counts.items(), key=str)):
+        G, n, K, L, step, fs, mode_t, tname = key
+        t, args, kw, mode = tracks_inputs(torch, key, seed=6000 + i)
+        am, fm, ph, a0 = args[:4]
+        tracks.reset_counts()
+        M = tracks.track_spline(am, fm, kw["acc"], a0, kw["voiced"], step)
+        M_ref = tracks.spline_reference(am, fm, a0, step, **kw)
+        got = tracks.stage(*args, **kw, **mode)
+        want = tracks.stage_reference(*args, **kw, **mode)
+        torch.cuda.synchronize()
+        assert tracks.plain_calls() == 0 and tracks.track_synth.launches == 1
+        e_m = rel_err(M, M_ref) if M_ref.numel() else 0.0
+        errs, flips, e_abs = stage_errors(got, want, step, n, flip_hz=(
+            1e-3 * fs if tname == "float32" else None))
+        pairs = int((t["acc"][:, :-1] & t["acc"][:, 1:]).sum())
+        flips_all += count * flips
+        pairs_all += count * pairs
+        worst = max([e_m] + list(errs.values()))
+        assert worst <= TRACK_TOL[tname], (key, e_m, errs)
+        assert flips * 1e4 < max(pairs, 1), (key, flips, pairs)
+        err["spline"] = max(err["spline"], (M - M_ref).abs().max().item())
+        err["synth"] = max(err["synth"], e_abs)
+        if mode["dc"] == "sum":
+            det, s_rec = t["det"][0], got.s[0]
+            nv = int(t["lens"][0])
+            std = torch.std(det[:nv], correction=0)
+            skw = dict(std_det=std, n_valid=nv)
+        else:
+            det, s_rec = t["det"], got.s + got.a0
+            skw = dict(lens=t["lens"])
+        srer = tracks.masked_srer(det, s_rec, **skw)
+        srer_ref = tracks.masked_srer_reference(det, s_rec, **skw)
+        d_srer = (srer - srer_ref).abs().max().item()
+        assert d_srer <= TRACK_SRER_TOL_DB[tname], (key, d_srer)
+        err["srer"] = max(err["srer"], d_srer)
+        reps = 3 if count > 1 else 1
+        ms = {"spline": cuda_ms(lambda: tracks.track_spline(
+                  am, fm, kw["acc"], a0, kw["voiced"], step), reps),
+              "synth": cuda_ms(lambda: tracks.track_synth(
+                  am, fm, ph, kw["acc"], a0, kw["voiced"], M, step, fs, L,
+                  **mode), reps),
+              "srer": cuda_ms(lambda: tracks.masked_srer(det, s_rec, **skw),
+                              reps)}
+        pms = {"spline": cuda_ms(lambda: tracks.spline_reference(
+                   am, fm, a0, step, **kw), 1),
+               "synth": cuda_ms(lambda: tracks.stage_reference(
+                   *args, **kw, **mode), 1),
+               "srer": cuda_ms(lambda: tracks.masked_srer_reference(
+                   det, s_rec, **skw), 1)}
+        costs = tracks_costs(key, t["am"].element_size())
+        line = {}
+        for k, (nbytes, ops) in zip(("spline", "synth", "srer"), costs):
+            t_b = nbytes / HBM_BYTES_S * 1e3
+            t_o = ops / PEAK_FLOP_S[tname] * 1e3
+            for k2, v in zip(keys, (ms[k], pms[k], t_b, t_o)):
+                tot[k][k2] += count * v
+            line[k] = max(t_b, t_o)
+        log(f"tracks kernels {tname} G={G} n={n} K={K} L={L} step={step} "
+            f"fs={fs:g} mode={mode_t} x{count}: track_spline "
+            f"{ms['spline']:.3f} ms (plain {pms['spline']:.3f}, bound "
+            f"{line['spline']:.4f}), track_synth {ms['synth']:.3f} ms (the "
+            f"plain stage {pms['synth']:.3f}, bound {line['synth']:.4f}), "
+            f"track_srer {ms['srer']:.3f} ms (plain {pms['srer']:.3f}, bound "
+            f"{line['srer']:.4f}); max_rel_err M {e_m:.2e}, stage "
+            f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (asserted <= "
+            f"{TRACK_TOL[tname]:g}), SRER |d| {d_srer:.2e} dB; flipped "
+            f"segments {flips} of {pairs} pairs")
+        del t, args, got, want, M, M_ref
+        torch.cuda.empty_cache()
+    log(f"tracks phase: flipped segments (float32 phase-end ties) "
+        f"{flips_all} of {pairs_all} pair segments over every launch")
+    entries = []
+    for key, name, replaces, also in (
+            ("spline", "track_spline", "eaqhm_tpu/models/tracks.py:43",
+             ["eaqhm_tpu/ops/interp.py:161"]),
+            ("synth", "track_synth", "eaqhm_tpu/models/tracks.py:143",
+             ["eaqhm_tpu/ops/interp.py:124", "eaqhm_tpu/ops/interp.py:161",
+              "eaqhm_tpu/models/engine.py:549",
+              "eaqhm_tpu/parallel/batch_engine.py:321"]),
+            ("srer", "track_srer", "eaqhm_tpu/models/engine.py:451",
+             ["eaqhm_tpu/parallel/batch_engine.py:419"])):
+        t = tot[key]
+        idx = {"spline": 0, "synth": 1, "srer": 2}[key]
+        by_path = {n: len(rec[idx]) for n, rec in TRACK_RUNS.items()}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "eaqhm_torch/kernels/csrc/tracks.cu",
+            "replaces": replaces, "replaces_also": also,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["t_bytes"], t["t_ops"]),
+            "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
+                         else "operations"),
+            "library_ms": None})
+    return entries
+
+
 def lfilter_line_entry(torch, filters, shapes):
     """The lfilter kernel at every launch the VAD path made, on seeded
     inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
@@ -1835,11 +2101,13 @@ def main(phases=PHASES):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs on a GPU")
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import eaqhm_torch
     from eaqhm_torch import benchmarks
     from eaqhm_torch.kernels import build
     from eaqhm_torch.models import engine, vad
     from eaqhm_torch.ops import block_inverse, chol, filters, fit, solver
+    from eaqhm_torch.ops import tracks
     from eaqhm_torch.parallel import batch_engine, streams
     from eaqhm_torch.parallel import corpus as corpus_mod
     from eaqhm_torch.parallel import mesh as mesh_mod
@@ -1976,6 +2244,9 @@ def main(phases=PHASES):
     t0 = time.time()
     fit_entries = fit_phase(torch, fit)
     log(f"fit phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    track_entries = tracks_phase(torch, tracks)
+    log(f"tracks phase: {time.time() - t0:.1f} s")
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
                       ("complex64", torch.complex64)):
@@ -1994,6 +2265,7 @@ def main(phases=PHASES):
     if lf_shapes is not None:
         kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
     kernels.extend(fit_entries)
+    kernels.extend(track_entries)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -117,27 +117,34 @@ class Run:
 
 
 class Launches:
-    """The Cholesky, block-inverse and fit kernels' counts summed over the
-    timed calls."""
+    """The Cholesky, block-inverse, fit and tracks kernels' counts summed
+    over the timed calls."""
 
     def __init__(self):
         self.counts = {name: {"launches": 0, "plain_calls": 0}
                        for name in ("chol_solve", "chol_subst",
-                                    "block_inverse", "fit_basis", "fit_gram")}
+                                    "block_inverse", "fit_basis", "fit_gram",
+                                    "track_spline", "track_synth",
+                                    "track_srer")}
 
     def __call__(self, fn, *args, **kw):
         """fn(*args, **kw) with the counts set to 0 before it and added in
         after it."""
-        from eaqhm_torch.ops import block_inverse, chol, fit
+        from eaqhm_torch.ops import block_inverse, chol, fit, tracks
         chol.reset_counts()
         block_inverse.reset_counts()
         fit.reset_counts()
+        tracks.reset_counts()
         out = fn(*args, **kw)
         plain_fits = fit.plain_fits()
+        plain_tracks = tracks.plain_calls()
         for name in self.counts:
             if name.startswith("fit"):
                 # the plain fit serves both kernels' work at once
                 f, plain = getattr(fit, name), plain_fits
+            elif name.startswith("track"):
+                # the plain stage serves the three kernels' work
+                f, plain = getattr(tracks, name), plain_tracks
             else:
                 f = (block_inverse.block_inverse_solve
                      if name == "block_inverse" else getattr(chol, name))

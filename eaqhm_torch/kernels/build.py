@@ -64,11 +64,25 @@ KERNELS = {
         "fit_gram_c64": [_P] * 4 + [_I, _I, _I, _P],
         "fit_gram_c128": [_P] * 4 + [_I, _I, _I, _P],
     }),
+    "tracks": ("tracks.cu", {
+        "track_spline_f32": [_P] * 8 + [_I, _I, _I, _L, _L, _I, _P],
+        "track_spline_f64": [_P] * 8 + [_I, _I, _I, _L, _L, _I, _P],
+        "track_synth_f32": [_P] * 16 + [_I, _I, _I, _I, _L, _L, _L, _I, _D,
+                                        _P],
+        "track_synth_f64": [_P] * 16 + [_I, _I, _I, _I, _L, _L, _L, _I, _D,
+                                        _P],
+        "track_srer_f32": [_P] * 5 + [_I, _L, _L, _L, _P],
+        "track_srer_f64": [_P] * 5 + [_I, _L, _L, _L, _P],
+    }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
         "lfilter_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
     }),
 }
+
+# nvcc flags of one library beside NVCC_FLAGS: the tracks stage rounds every
+# product and sum on its own, as the torch ops it replaces
+EXTRA_FLAGS = {"tracks": ("-fmad=false",)}
 
 _loaded = {}
 _locks = {}                    # (name, defines) -> lock of its build
@@ -124,7 +138,8 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
         lock = _locks.setdefault(key, threading.Lock())
     with lock:
         if key not in _loaded:
-            flags = tuple(NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
+            flags = (tuple(NVCC_FLAGS) + EXTRA_FLAGS.get(name, ())
+                     + tuple(f"-D{d}" for d in defines))
             _bind(key, _build(name, flags))
     return _loaded[key]
 

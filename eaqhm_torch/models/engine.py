@@ -17,7 +17,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +27,8 @@ from eaqhm_torch.config import EaqhmConfig
 from eaqhm_torch.device import resolve_device
 from eaqhm_torch.models import swipe as swipe_mod
 from eaqhm_torch.models import vad as vad_mod
-from eaqhm_torch.models.tracks import interpolate_tracks_anchors
-from eaqhm_torch.ops import block_inverse, chol, filters, fit, interp, solver
+from eaqhm_torch.ops import block_inverse, chol, filters, fit, solver
+from eaqhm_torch.ops import tracks as tracks_ops
 from eaqhm_torch.utils import io as io_mod
 from eaqhm_torch.utils.progress import progress_bar
 
@@ -381,31 +381,17 @@ def _combine_buckets(parts, idx_list, No: int, Kcm: int, dtype):
     return a0[:No], am[:No], fm[:No], ph[:No], acc[:No]
 
 
-def _masked_srer(det, s_rec, std_det, n_valid: int):
-    """SRER over the first n_valid samples (padded tail excluded):
-    20*log10(std_det/std(det - s_rec)) (reference functions.py:388).
-    std_det: a 0-d tensor of det's dtype."""
-    resid = det - s_rec
-    m = (torch.arange(resid.shape[0], device=det.device) < n_valid).to(
-        det.dtype)
-    n = float(max(n_valid, 1))
-    mu = torch.sum(resid * m) / n
-    sd = torch.sqrt(torch.sum(m * (resid - mu) ** 2) / n)
-    return 20.0 * torch.log10(std_det / sd)
-
-
-def _scatter_and_interp(a0_val, am, fm, ph, acc, voiced, length: int,
-                        step: int, fs: float):
-    """Frame results to dense tracks, interpolate, synthesize."""
-    zero = torch.zeros((), dtype=am.dtype, device=am.device)
-    # DC track: not-a-knot cubic over all analysis instants (functions.py:340)
-    a0_interp = interp.notaknot_interp_uniform(
-        torch.where(voiced, a0_val, zero), step, length)
-    am_f, fm_f, ph_f, fm_cur = interpolate_tracks_anchors(
-        torch.where(acc, am, zero), torch.where(acc, fm, zero),
-        torch.where(acc, ph, zero), step, fs, length)
-    s_rec = a0_interp + 2.0 * torch.sum(am_f * torch.cos(ph_f), dim=1)
-    return a0_interp, am_f, fm_f, ph_f, fm_cur, s_rec
+class Adaptation(NamedTuple):
+    """One adaptation's result, as the loops read it: the dense am and
+    fm_current the next adaptation's fits read [L, Kc], the anchor rows of
+    am, fm and the corrected ph [3, No, Kc] and of the DC [No] (the
+    packaging), the synthesis [L] and the SRER (0-d)."""
+    am: torch.Tensor
+    fm_cur: torch.Tensor
+    stk: torch.Tensor
+    a0: torch.Tensor
+    s_rec: torch.Tensor
+    srer: torch.Tensor
 
 
 class _Adapter:
@@ -461,29 +447,41 @@ class _Adapter:
                 t[name].copy_(u[name])
         self.geo = other.geo
 
-    def _finish(self, parts):
+    def _finish(self, parts, out=None) -> Adaptation:
+        """Frame results to tracks, synthesis and SRER: on CUDA the tracks
+        kernels (ops.tracks), on the CPU their plain version.  out: (am,
+        fm_cur) [L, Kc] buffers for the dense tracks (the fused loop's
+        state, which every fit of the adaptation has read by then)."""
         g = self.geo
         with record_function("eaqhm/tracks"):
             a0_v, am_v, fm_v, ph_v, acc_v = _combine_buckets(
                 parts, [t["idx"] for t in self.tiers], g.No_pad, self.Kcm,
                 self.s.dtype)
-            out = _scatter_and_interp(a0_v, am_v, fm_v, ph_v, acc_v,
-                                      self.voiced, g.Lpad, self.step, self.fs)
-            srer = _masked_srer(self.det, out[-1], self.std_det, g.length)
-        return (*out, srer)
+            st = tracks_ops.stage(
+                am_v[None], fm_v[None], ph_v[None], a0_v[None], self.step,
+                self.fs, g.Lpad, acc=acc_v[None], voiced=self.voiced[None],
+                out=None if out is None else (out[0][None], out[1][None]))
+            srer = tracks_ops.masked_srer(self.det, st.s[0],
+                                          std_det=self.std_det,
+                                          n_valid=g.length)
+        return Adaptation(am=st.am[0], fm_cur=st.fm_cur[0],
+                          stk=st.anchors[:, 0], a0=st.a0_anchor[0],
+                          s_rec=st.s[0], srer=srer)
 
-    def adapt0(self):
+    def adapt0(self, out=None) -> Adaptation:
         """Adaptation 0: stationary fits, tracks, synthesis, SRER."""
         parts = [_iqhm_stage(self.s, t["centers"], t["f0"], t["K"], t["wl"],
                              t["W"], t["Kc"], self.fs, self.chunk,
                              self.method) for t in self.tiers]
-        return self._finish(parts)
+        return self._finish(parts, out)
 
-    def adapt(self, fm_current, am_current, h, do_update: bool):
+    def adapt(self, fm_current, am_current, h, do_update: bool,
+              out=None) -> Adaptation:
         """Adaptation >= 1; h: 0-d tensor, the fm-mismatch bound.  The
         dead-track overlay is computed over all analyzed frames before the
         per-tier fits, so every tier's windows see every dead frame as the
-        reference's in-place writes would."""
+        reference's in-place writes would.  out: as ``_finish``'s (the
+        tracks read here may be written there)."""
         mask_all = fm_current[self.all_centers] != 0           # [Nv, Kcm]
         dead_all = ~mask_all.any(dim=1)
         dead_center = torch.zeros(self.s.shape[0], dtype=torch.bool,
@@ -502,16 +500,14 @@ class _Adapter:
                 dead_center, h, do_update, t["W"], Kb, self.fs, self.chunk,
                 self.method))
             off += nb
-        return self._finish(parts)
+        return self._finish(parts, out)
 
 
-def _package_strided(am, fm, ph, a0, s_recon, step: int, No: int):
+def _package(out: Adaptation):
     """DetComponents packaging: the analysis grid is uniform (centers =
-    arange(No) * step), so the anchor rows are a strided slice.
+    arange(No) * step), and the tracks stage wrote the anchor rows.
     Returns (stk [3, No, Kc], vec [No + L])."""
-    hi = (No - 1) * step + 1
-    stk = torch.stack([am[:hi:step], fm[:hi:step], ph[:hi:step]])
-    return stk, torch.cat([a0[:hi:step], s_recon])
+    return out.stk, torch.cat([out.a0, out.s_rec])
 
 
 # Captured adaptations of recent geometries (CUDA only), most recent last:
@@ -592,25 +588,23 @@ class _FusedLoop:
         self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def step(self) -> None:
-        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer = self.ad.adapt(
-            self.fm, self.am, self.h, self.do_update)
-        improved = srer > self.prev
-        stk, vec = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec,
-                                    self.ad.step, self.ad.geo.No_pad)
+        # the dense tracks go straight into the state buffers: every fit of
+        # the adaptation has read them when the tracks stage writes them
+        out = self.ad.adapt(self.fm, self.am, self.h, self.do_update,
+                            out=(self.am, self.fm))
+        improved = out.srer > self.prev
+        stk, vec = _package(out)
         self.stk.copy_(torch.where(improved, stk, self.stk))
         self.vec.copy_(torch.where(improved, vec, self.vec))
-        self.prev.copy_(srer)
-        self.fm.copy_(fm_cur)
-        self.am.copy_(am_f)
-        self.out.copy_(torch.stack([srer, (~improved).to(srer.dtype)]))
+        self.prev.copy_(out.srer)
+        self.out.copy_(torch.stack([out.srer,
+                                    (~improved).to(out.srer.dtype)]))
 
-    def start(self, out0) -> None:
-        """Load adaptation 0's result as the loop's state and best."""
-        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer0 = out0
-        stk, vec = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec,
-                                    self.ad.step, self.ad.geo.No_pad)
-        for buf, val in ((self.fm, fm_cur), (self.am, am_f),
-                         (self.prev, srer0), (self.stk, stk),
+    def start(self, out0: Adaptation) -> None:
+        """Load adaptation 0's result (its tracks already in the state
+        buffers, ``adapt0(out=(loop.am, loop.fm))``) as the loop's best."""
+        stk, vec = _package(out0)
+        for buf, val in ((self.prev, out0.srer), (self.stk, stk),
                          (self.vec, vec)):
             buf.copy_(val)
 
@@ -624,6 +618,7 @@ class _FusedLoop:
             chol.count_replay(self.captured[0])
             block_inverse.count_replay(self.captured[1])
             fit.count_replay(self.captured[2])
+            tracks_ops.count_replay(self.captured[3])
             record["replays"] += 1
         elif self.side is None:
             self.step()
@@ -648,6 +643,7 @@ class _FusedLoop:
             chol.take_captured()
             block_inverse.take_captured()
             fit.take_captured()
+            tracks_ops.take_captured()
             graph = torch.cuda.CUDAGraph()
             # "thread_local": CUDA calls of other threads (stream workers)
             # neither break this capture nor fail because of it.  One
@@ -666,7 +662,8 @@ class _FusedLoop:
                     graph.capture_end()
             self.captured = (chol.take_captured(),
                              block_inverse.take_captured(),
-                             fit.take_captured())
+                             fit.take_captured(),
+                             tracks_ops.take_captured())
             self.graph = graph
             record["capture_s"] = time.time() - t_c
         return srer, bool(stop), seconds
@@ -687,8 +684,8 @@ def _fused_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
     record = {"eager": 1, "replays": 0, "capture_s": 0.0,
               "cached_graph": loop.graph is not None}
     with record_function("eaqhm/adapt_loop"):
-        out0 = loop.ad.adapt0()
-        srer = [float(out0[-1])]
+        out0 = loop.ad.adapt0(out=(loop.am, loop.fm))
+        srer = [float(out0.srer)]
         seconds = [time.time() - t_a]
         loop.start(out0)
         n = config.max_adaptations
@@ -729,7 +726,6 @@ def _host_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
     best = None
     fm_cur = am_cur = None
     h = torch.empty((), dtype=ad.s.dtype, device=ad.s.device)
-    hi = (geo.No_pad - 1) * ad.step + 1
     for a in range(config.max_adaptations + 1):
         t_a = time.time()
         if a == 0:
@@ -737,16 +733,14 @@ def _host_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
         else:
             h.fill_(geo.f0_stale / (a + 1))
             out = ad.adapt(fm_cur, am_cur, h, do_update)
-        a0_i, am_f, fm_f, ph_f, fm_cur, s_rec, srer_t = out
-        am_cur = am_f
-        cur = float(srer_t)
+        am_cur, fm_cur = out.am, out.fm_cur
+        cur = float(out.srer)
         srer.append(cur)
         dt = time.time() - t_a
         timings[f"adaptation_{a}"] = dt
         m = {"adaptation": a, "srer_db": cur, "seconds": dt}
         if config.collect_metrics:
-            m["accepted_harmonics"] = int(torch.count_nonzero(
-                am_f[:hi:ad.step]))
+            m["accepted_harmonics"] = int(torch.count_nonzero(out.stk[0]))
         metrics.append(m)
         if bar is not None:
             bar.set_postfix_str(f"SRER {cur:.3f} dB")
@@ -758,8 +752,7 @@ def _host_loop(ad: _Adapter, config: EaqhmConfig, do_update: bool,
                 break            # keep-previous-on-decline
             if srer[a] <= max(srer[:a]):
                 continue         # keep the best so far, keep going
-        best = _package_strided(am_f, fm_f, ph_f, a0_i, s_rec, ad.step,
-                                geo.No_pad)
+        best = _package(out)
     if bar is not None:
         bar.close()
     t_s = time.time()

@@ -6,10 +6,13 @@ integrated with the 2*pi*M endpoint correction (functions.py:537-575); the
 instantaneous-frequency track is rebuilt from the unwrapped phase.
 
 Anchors sit on the uniform analysis grid (spacing `step` samples), so all
-harmonics and all runs are processed at once on the [n_ti, K] anchor grid:
-run detection by shifted masks, the not-a-knot spline as a segmented Thomas
-solve by two affine scans (ops.scan), runs shorter than 4 anchors as the
-reference's synthetic-anchor 4-point cubic, and phase integration per
+harmonics and all runs are processed at once on the [n_ti, K] anchor grid.
+On a CUDA tensor ``interpolate_tracks_anchors`` runs the hand kernels of
+``ops.tracks`` (kernels/csrc/tracks.cu, writing dense fm and ph as well);
+on a CPU tensor its plain version ``interpolate_tracks_anchors_reference``:
+run detection by shifted masks, the not-a-knot spline as a segmented
+Thomas solve by two affine scans (ops.scan), runs shorter than 4 anchors as
+the reference's synthetic-anchor 4-point cubic, and phase integration per
 inter-anchor segment as one [n_pairs, step, K] cumsum.
 """
 from __future__ import annotations
@@ -20,30 +23,11 @@ import math
 import numpy as np
 import torch
 
+from eaqhm_torch.ops import tracks as tracks_ops
 from eaqhm_torch.ops.interp import cubic4_eval
 from eaqhm_torch.ops.scan import associative_scan, cumsum
 
 MIN_INTERP_SIZE = 4  # reference misc.py:14
-_CPLEN = 48          # cp fixed point reached to f64 eps by ~24 unknowns
-
-
-# Host-built constants are made on the device once per (shape, dtype,
-# device) and reused: an adaptation captured as a CUDA graph copies nothing
-# from the host.
-@functools.lru_cache(maxsize=64)
-def _cp_table(dtype, device):
-    """Elimination multipliers of the uniform not-a-knot system."""
-    ctab = np.zeros(_CPLEN + 1)
-    for k in range(1, _CPLEN + 1):
-        ctab[k] = 1.0 / (4.0 - ctab[k - 1])
-    return torch.as_tensor(ctab, dtype=dtype, device=device)
-
-
-@functools.lru_cache(maxsize=64)
-def _sine_bump(step: int, dtype, device):
-    """Cumulative sine bump of the phase endpoint correction, [step]."""
-    ft_cum = np.cumsum(np.sin(np.pi * np.arange(0, step + 1) / step))
-    return torch.as_tensor(ft_cum[1:], dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -88,10 +72,10 @@ def _segmented_notaknot_M(y, in_run, start_slot, end_slot, h):
     un = interior & ~known
     M_known = d / (6.0 * h)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    ctab_t = _cp_table(dtype, dev)
+    ctab_t = tracks_ops.cp_table(dtype, dev)
     prev_block = torch.where(~un, s, -1).cummax(dim=0).values
-    pos = (s - prev_block).clamp(0, _CPLEN)
-    cp_prev = ctab_t[(pos - 1).clamp(0, _CPLEN)]
+    pos = (s - prev_block).clamp(0, tracks_ops.CPLEN)
+    cp_prev = ctab_t[(pos - 1).clamp(0, tracks_ops.CPLEN)]
     g = 4.0 - cp_prev
     cp = torch.where(un, ctab_t[pos], zero)
 
@@ -110,6 +94,33 @@ def _segmented_notaknot_M(y, in_run, start_slot, end_slot, h):
     return torch.where(is_end, M_end, torch.where(is_start, M_start, M))
 
 
+def _runs(A_am):
+    """Run detection on the anchor grid [n, K] (accepted: am != 0): (acc,
+    in_run, run_start, run_end, start_slot, end_slot), the slots valid
+    where in_run."""
+    n, K = A_am.shape
+    false_row = torch.zeros((1, K), dtype=torch.bool, device=A_am.device)
+    acc = A_am != 0
+    acc_prev = torch.cat([false_row, acc[:-1]])
+    acc_next = torch.cat([acc[1:], false_row])
+    in_run = acc & (acc_prev | acc_next)
+    run_start = acc & ~acc_prev & acc_next
+    run_end = acc & acc_prev & ~acc_next
+    s_idx = torch.arange(n, device=A_am.device)[:, None]
+    start_slot = torch.where(run_start, s_idx, -1).cummax(dim=0).values
+    end_slot = torch.where(run_end, s_idx, n + 1).flip(0).cummin(
+        dim=0).values.flip(0)
+    return acc, in_run, run_start, run_end, start_slot, end_slot
+
+
+def spline_M_reference(A_am, A_fm, h):
+    """The not-a-knot second derivatives of every run of every column of
+    the anchor grid [n, K]: the plain version of ops.tracks.track_spline's
+    harmonic columns."""
+    _, in_run, _, _, start_slot, end_slot = _runs(A_am)
+    return _segmented_notaknot_M(A_fm, in_run, start_slot, end_slot, h)
+
+
 def segment_phase(seg_fm, ph_s, ph_e, step: int, fs: float):
     """Phase integration of every inter-anchor segment at once
     (functions.py:537-575).
@@ -126,7 +137,7 @@ def segment_phase(seg_fm, ph_s, ph_e, step: int, fs: float):
     pm_end = pm[:, -1, :]
     Mw = torch.round((pm_end - ph_e) / (2.0 * math.pi))
     er = math.pi * (pm_end - ph_e - 2.0 * math.pi * Mw) / (2.0 * h)
-    corr = er[:, None, :] * _sine_bump(step, dtype, seg_fm.device)[
+    corr = er[:, None, :] * tracks_ops.sine_bump(step, dtype, seg_fm.device)[
         None, :, None]
     return pm - corr
 
@@ -149,8 +160,23 @@ def interpolate_tracks_anchors(A_am, A_fm, A_ph, step: int, fs: float,
     A_am/A_fm/A_ph: [n_ti, K] per-analysis-instant values (zero = not
     accepted); anchor i sits at sample i*step.  Returns dense (am_filled,
     fm_filled, ph_filled, fm_current), each [length, K], interpolated as
-    reference functions.py:346-381.
+    reference functions.py:346-381: on a CUDA tensor by the tracks kernels
+    (``ops.tracks.stage`` with dense fm and ph), on a CPU tensor by the
+    plain version.
     """
+    if A_am.device.type == "cpu":
+        return interpolate_tracks_anchors_reference(A_am, A_fm, A_ph, step,
+                                                    fs, length)
+    st = tracks_ops.stage(A_am[None], A_fm[None], A_ph[None],
+                          A_am.new_zeros((1, A_am.shape[0])), step, fs,
+                          length, dc="apart", anchors=False, dense=True)
+    return st.am[0], st.fm[0], st.ph[0], st.fm_cur[0]
+
+
+def interpolate_tracks_anchors_reference(A_am, A_fm, A_ph, step: int,
+                                         fs: float, length: int):
+    """The plain version of ``interpolate_tracks_anchors``: the torch ops
+    of eaqhm_tpu/models/tracks.py:143-269."""
     dtype = A_am.dtype
     dev = A_am.device
     n_ti, K = A_am.shape
@@ -158,20 +184,9 @@ def interpolate_tracks_anchors(A_am, A_fm, A_ph, step: int, fs: float,
     n_pairs = n_ti - 1
     h = float(step)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    false_row = torch.zeros((1, K), dtype=torch.bool, device=dev)
 
-    acc = A_am != 0
-    acc_prev = torch.cat([false_row, acc[:-1]])
-    acc_next = torch.cat([acc[1:], false_row])
-    in_run = acc & (acc_prev | acc_next)
-    run_start = acc & ~acc_prev & acc_next
-    run_end = acc & acc_prev & ~acc_next
+    acc, in_run, run_start, run_end, start_slot, end_slot = _runs(A_am)
     pair = acc[:-1] & acc[1:]                           # [n_pairs, K]
-
-    s_idx = torch.arange(n_ti, device=dev)[:, None]
-    start_slot = torch.where(run_start, s_idx, -1).cummax(dim=0).values
-    end_slot = torch.where(run_end, s_idx, n_ti + 1).flip(0).cummin(
-        dim=0).values.flip(0)
     run_len = end_slot - start_slot + 1
 
     # ---- FM spline values ----

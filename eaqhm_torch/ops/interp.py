@@ -122,12 +122,26 @@ def notaknot_interp_uniform(yv, step: int, length: int):
 
     yv: [n] anchor values at samples 0, step, 2*step, ...; returns
     [length].  yv [n, C] interpolates C independent columns at once and
-    returns [length, C].
+    returns [length, C].  On a CUDA tensor the tracks kernels
+    (``ops.tracks.stage`` with the columns as DC tracks and no harmonic),
+    on a CPU tensor the plain version.
     """
-    from eaqhm_torch.models.tracks import _segmented_notaknot_M
-
     if yv.dim() == 1:
         return notaknot_interp_uniform(yv[:, None], step, length)[:, 0]
+    if yv.device.type == "cpu":
+        return notaknot_interp_uniform_reference(yv, step, length)
+    from eaqhm_torch.ops import tracks
+    none = yv.new_zeros((yv.shape[1], yv.shape[0], 0))
+    return tracks.stage(none, none, none, yv.T, step, 1.0, length,
+                        dc="apart", anchors=False).a0.T
+
+
+def notaknot_interp_uniform_reference(yv, step: int, length: int):
+    """The plain version of ``notaknot_interp_uniform`` (yv [n, C]): the
+    segmented not-a-knot solve of models.tracks over one run, then the
+    cubic of each segment at its samples."""
+    from eaqhm_torch.models.tracks import _segmented_notaknot_M
+
     dtype = yv.dtype
     dev = yv.device
     n, C = yv.shape

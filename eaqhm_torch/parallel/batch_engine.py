@@ -24,10 +24,10 @@ independent, so in float64 this changes roundings only.  The solve is
 ``solver.solve_gram`` with the dtype's default method, as JAX's batch path
 (config.solve_method does not apply here): float64 "cholesky", the hand
 CUDA kernel at M = 4 K_t + 2 for each tier K_t; float32 "block_inverse"
-with its ridged rerun on the kernel.  Pitch and the track interpolation are
-the per-utterance functions: pitch runs per utterance, the tracks of all
-utterances at once (harmonic columns are independent, so the utterances'
-columns stack side by side).
+with its ridged rerun on the kernel.  Pitch runs per utterance; the tracks,
+synthesis and SRER stage (``ops.tracks``, its hand kernels on CUDA) takes
+every utterance at once (harmonic columns are independent: each utterance
+is one group of columns, with its own DC track, partial sum and SRER).
 
 With a mesh (``parallel.mesh.make_mesh``), every rank runs the same program
 (SPMD over ``torch.distributed``) on the same signals:
@@ -62,8 +62,8 @@ from eaqhm_torch.device import resolve_device
 from eaqhm_torch.models import engine as engine_mod
 from eaqhm_torch.models import swipe as swipe_mod
 from eaqhm_torch.models import vad as vad_mod
-from eaqhm_torch.models.tracks import interpolate_tracks_anchors
-from eaqhm_torch.ops import interp, solver
+from eaqhm_torch.ops import solver
+from eaqhm_torch.ops import tracks as tracks_ops
 from eaqhm_torch.parallel.corpus import pad_batch
 
 
@@ -126,7 +126,7 @@ def make_batch_geometry(fs: int, length: int, config: EaqhmConfig,
     No = len(np.arange(1, length, step))
     No = ((No + mp - 1) // mp) * mp
     # the uniform anchor grid must fit inside the padded length
-    # (interpolate_tracks_anchors assembles (No-1)*step+1 samples)
+    # (the tracks stage assembles (No-1)*step+1 samples)
     length = max(int(length), (No - 1) * step + 1)
     tiers = _make_tiers(W, Kc, float(fs), config.pitch_periods)
     return BatchGeometry(fs=float(fs), length=int(length), step=step, No=No,
@@ -353,22 +353,14 @@ def _interp_and_synth(a0_val, tr, geom: BatchGeometry):
     """Track interpolation + partial synthesis for one harmonic shard.
 
     a0_val [B, No]; tr [3, B, No, Kc_loc] (am, fm, ph, zero where not
-    accepted).  The utterances' harmonic columns stack side by side (each
-    column interpolates on its own).  Returns (a0_interp [B, L], s_partial
-    [B, L], harmonics only, so model-shard sums do not multiply the DC;
-    am_f, fm_cur [B, L, Kc_loc])."""
-    L, step, fs = geom.length, geom.step, geom.fs
-    _, B, No, K = tr.shape
-    am, fm, ph = tr.permute(0, 2, 1, 3).reshape(3, No, B * K)
-    a0_interp = interp.notaknot_interp_uniform(a0_val.T, step, L).T
-    am_f, _, ph_f, fm_cur = interpolate_tracks_anchors(am, fm, ph, step, fs,
-                                                       L)
-    s_partial = 2.0 * torch.sum((am_f * torch.cos(ph_f)).reshape(L, B, K),
-                                dim=2).T
-
-    def per_utt(x):
-        return x.reshape(L, B, K).permute(1, 0, 2)
-    return a0_interp, s_partial, per_utt(am_f), per_utt(fm_cur)
+    accepted).  Every utterance's harmonic columns go through the tracks
+    stage at once (``ops.tracks.stage``: each column interpolates on its
+    own; the kernels on CUDA, the plain version on the CPU).  Returns
+    (a0_interp [B, L], s_partial [B, L], harmonics only, so model-shard
+    sums do not multiply the DC; am_f, fm_cur [B, L, Kc_loc])."""
+    st = tracks_ops.stage(tr[0], tr[1], tr[2], a0_val, geom.step, geom.fs,
+                          geom.length, dc="apart", anchors=False)
+    return st.a0, st.s, st.am, st.fm_cur
 
 
 def _all_gather(x, group, dim: int):
@@ -410,16 +402,7 @@ def make_batch_step(mesh, geom: BatchGeometry, adapt0: bool):
             fm_cur = _all_gather(fm_cur, model, 2)
         s_rec = s_part + a0_i                 # a0 redundant per shard
         # masked SRER over each utterance's true length
-        samp = torch.arange(geom.length, device=s_rec.device)[None, :]
-        msk = (samp < shard.lens[:, None]).to(s_rec.dtype)
-        n = torch.clamp(msk.sum(dim=1), min=1.0)
-
-        def mstd(x):
-            mu = torch.sum(x * msk, dim=1) / n
-            return torch.sqrt(torch.sum(msk * (x - mu[:, None]) ** 2, dim=1)
-                              / n)
-
-        srer_b = 20.0 * torch.log10(mstd(shard.det) / mstd(shard.det - s_rec))
+        srer_b = tracks_ops.masked_srer(shard.det, s_rec, lens=shard.lens)
         return s_rec, fm_cur, am_f, srer_b
 
     return step

@@ -123,7 +123,8 @@ def _check_line(line, n):
     k = line["kernels"]
     assert k["chol_solve"]["launches"] == k["chol_subst"]["launches"] == 0
     assert k["chol_solve"]["plain_calls"] > 0
-    for name in ("fit_basis", "fit_gram"):
+    for name in ("fit_basis", "fit_gram", "track_spline", "track_synth",
+                 "track_srer"):
         assert k[name]["launches"] == 0 and k[name]["plain_calls"] > 0
 
 

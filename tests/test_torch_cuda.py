@@ -371,3 +371,126 @@ def test_cuda_fit_gram_plan_matches_the_library():
         assert lib.fit_gram_plan(Kc, out) == 0
         assert tuple(out) == fit.gram_plan(Kc), Kc
         assert fit.gram_work_ratio(Kc) <= 1.35, Kc
+
+
+# the tracks kernels against their plain version: float64 to rounding;
+# float32 sums M's affine maps, the in-segment phase and the K-sum in other
+# orders (a few float32 ulps of the phase, times fs / 2 pi in fm_current),
+# about ten times the largest such gap; a segment whose phase-end round
+# flips (none at these shapes) would be counted and left out
+TRACK_TOL = {torch.float64: 1e-10, torch.float32: 2e-5}
+TRACK_SRER_TOL_DB = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+def _track_case(seed, dtype, **kw):
+    from torch_track_cases import anchor_case
+    c = anchor_case(seed, **kw)
+    t = {k: torch.as_tensor(c[k], device="cuda") for k in
+         ("am", "fm", "ph", "acc", "a0", "voiced", "det", "lens")}
+    for k in ("am", "fm", "ph", "a0", "det"):
+        t[k] = t[k].to(dtype)
+    return c, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_tracks_stage_matches_plain_version(dtype):
+    """track_spline, track_synth and track_srer against the plain version
+    on the same CUDA tensors: one utterance as the engine calls them (the
+    acceptance and voiced masks, anchors, s with the DC, L > Lp), three
+    utterances as the batch engine does (masked values, the DC apart, a
+    strided anchor table, per-utterance lengths), 300 columns (more than a
+    block), step 4 with L = Lp, and the dense mode; two launches agree bit
+    for bit; the counts move by one launch a kernel and no plain call."""
+    _needs_cuda()
+    from eaqhm_torch.ops import tracks
+    from torch_track_cases import stage_errors
+    cases = [(dict(seed=0), dict(dc="sum"), True),
+             (dict(seed=1, G=3, n=90, K=5), dict(dc="apart"), False),
+             (dict(seed=2, n=30, K=300, extra=3), dict(dc="sum"), True),
+             (dict(seed=3, n=50, K=9, step=4, extra=0), dict(dc="sum",
+                                                             dense=True),
+              True)]
+    for kw, mode, masks in cases:
+        c, t = _track_case(kw.pop("seed"), dtype, **kw)
+        step, fs, L = c["step"], c["fs"], c["L"]
+        if masks:
+            args = (t["am"], t["fm"], t["ph"], t["a0"])
+            extra = dict(acc=t["acc"], voiced=t["voiced"])
+        else:
+            wide = torch.zeros((3,) + tuple(t["am"].shape[:2])
+                               + (t["am"].shape[2] + 2,), dtype=dtype,
+                               device="cuda")
+            for i, k in enumerate(("am", "fm", "ph")):
+                wide[i, ..., 1:-1] = torch.where(t["acc"], t[k], 0)
+            args = (wide[0, ..., 1:-1], wide[1, ..., 1:-1],
+                    wide[2, ..., 1:-1], torch.where(t["voiced"], t["a0"], 0))
+            extra = {}
+        tracks.reset_counts()
+        got = tracks.stage(*args, step, fs, L, **extra, **mode)
+        again = tracks.stage(*args, step, fs, L, **extra, **mode)
+        want = tracks.stage_reference(*args, step, fs, L, **extra, **mode)
+        torch.cuda.synchronize()
+        assert tracks.track_spline.launches == 2
+        assert tracks.track_synth.launches == 2 and tracks.plain_calls() == 0
+        for a, b in zip(got, again):
+            assert a is None or torch.equal(a, b)
+        errs, flips, _ = stage_errors(got, want, step, c["am"].shape[1],
+                                   flip_hz=1e-3 * fs)
+        assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], errs
+        if masks:
+            std = torch.std(t["det"][0, :int(c["lens"][0])], correction=0)
+            srer = tracks.masked_srer(t["det"][0], got.s[0], std_det=std,
+                                      n_valid=int(c["lens"][0]))
+            ref = tracks.masked_srer_reference(t["det"][0], got.s[0],
+                                               std_det=std,
+                                               n_valid=int(c["lens"][0]))
+        else:
+            s_rec = got.s + got.a0
+            srer = tracks.masked_srer(t["det"], s_rec, lens=t["lens"])
+            ref = tracks.masked_srer_reference(t["det"], s_rec,
+                                               lens=t["lens"])
+        assert tracks.track_srer.launches == 1
+        d = (srer - ref).abs().max().item()
+        assert d <= TRACK_SRER_TOL_DB[dtype], d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_public_track_functions_match_plain_version(dtype):
+    """interpolate_tracks_anchors, interpolate_tracks and
+    notaknot_interp_uniform on CUDA tensors (the kernels, with dense fm and
+    ph; the DC columns alone, shorter and longer than the anchors cover)
+    against their plain versions."""
+    _needs_cuda()
+    from eaqhm_torch.models import tracks as tt
+    from eaqhm_torch.ops import interp, tracks
+    c, t = _track_case(4, dtype, n=80, K=6)
+    am, fm, ph = (torch.where(t["acc"][0], t[k][0], 0)
+                  for k in ("am", "fm", "ph"))
+    tol = TRACK_TOL[dtype]
+    tracks.reset_counts()
+    got = tt.interpolate_tracks_anchors(am, fm, ph, c["step"], c["fs"],
+                                        c["L"])
+    want = tt.interpolate_tracks_anchors_reference(am, fm, ph, c["step"],
+                                                   c["fs"], c["L"])
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= tol * w.abs().max()
+    rows = torch.arange(80, device="cuda") * c["step"]
+    dense = [torch.zeros((c["L"], 6), dtype=dtype, device="cuda")
+             for _ in range(3)]
+    for d, a in zip(dense, (am, fm, ph)):
+        d[rows] = a
+    for g, w in zip(tt.interpolate_tracks(*dense, c["step"], c["fs"], 80,
+                                          c["L"]), want):
+        assert (g - w).abs().max() <= tol * w.abs().max()
+    yv = t["a0"][0]
+    for length in (79 * c["step"] - 7, 79 * c["step"] + 40):
+        for y in (yv, torch.stack([yv, 2 * yv], dim=1)):
+            g = interp.notaknot_interp_uniform(y, c["step"], length)
+            w = interp.notaknot_interp_uniform_reference(
+                y if y.dim() == 2 else y[:, None], c["step"], length)
+            w = w if y.dim() == 2 else w[:, 0]
+            assert g.shape == w.shape
+            assert (g - w).abs().max() <= tol * w.abs().max()
+    assert tracks.track_synth.launches == 6 and tracks.plain_calls() == 0

@@ -58,6 +58,7 @@ def test_import_leaves_jax_out():
             "eaqhm_torch.kernels.build, eaqhm_torch.ops.chol, "
             "eaqhm_torch.ops.block_inverse, eaqhm_torch.ops.fit, "
             "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
+            "eaqhm_torch.ops.tracks, eaqhm_torch.models.tracks, "
             "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "
             "eaqhm_torch.parallel.corpus, eaqhm_torch.parallel.streams, "
             "eaqhm_torch.parallel.batch_engine, eaqhm_torch.parallel.mesh, "
@@ -79,7 +80,8 @@ _IMPORT = re.compile(
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_track_cases.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "eaqhm_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10

@@ -1,23 +1,35 @@
 """Device-time breakdown of eaqhm_torch.analyze on one CUDA GPU.
 
-Runs the port's main path (the golden SA19 resynthesis of
-tests/golden/sa19_golden.npz, female preset) for each configuration asked:
-two calls to warm up (the first builds kernels and, for the fused loop,
-captures its graph), three timed warm calls without the profiler, then one
-under torch.profiler.  A configuration is DTYPE[:SOLVE_METHOD][:fused]
-(e.g. float32:block_inverse, float64:fused).  Prints, per configuration:
-warm wall seconds (unprofiled, each call), the profiled call's wall, device
-busy seconds and idle share against both walls, per-adaptation seconds,
-device time per layer span (eaqhm/pitch, eaqhm/fit, eaqhm/solve,
-eaqhm/tracks; graph replays run no spans) and the top kernels; the whole
-report goes to <out>.json and, with --trace, a Chrome trace per
-configuration to <out>_<config>.json (default <out>: build/profile, which
-.gitignore lists).
+Runs the port's main path for each configuration asked, on the golden SA19
+resynthesis of tests/golden/sa19_golden.npz (female preset; --signal sa19,
+the default) or on config 4's stress signal (benchmarks.stress_signal(),
+60 s, male preset, max_adaptations=10; --signal stress): ``--warm`` calls
+to warm up (the first builds kernels and, for the fused loop, captures its
+graph), ``--timed`` warm calls without the profiler, then one under
+torch.profiler.  A configuration is DTYPE[:SOLVE_METHOD][:fused] (e.g.
+float32:block_inverse, float64:fused).  Prints, per configuration: warm
+wall seconds (unprofiled, each call), the profiled call's wall, device busy
+seconds and idle share against both walls, per-adaptation seconds, device
+time per layer span (eaqhm/pitch, eaqhm/fit, eaqhm/solve, eaqhm/tracks;
+graph replays run no spans), the tracks span per adaptation (its device
+time and the launches made inside it: kernels, copies and memsets the
+host issued between the span's start and end) and the top kernels.  With
+--peaks, one more unprofiled call per configuration measures the peak
+device memory of each stage: the peak is reset just before every call of
+the fit (iqhm_gram_tables / eaqhm_gram_tables), the solve (solve_gram)
+and the tracks stage (engine._Adapter._finish) and read just after it
+(the device synchronized on both sides), and the largest reading per
+stage is kept beside the call's own peak.  The whole report goes to
+<out>.json and, with --trace, a Chrome trace per configuration to
+<out>_<config>.json (default <out>: build/profile, which .gitignore lists).
 
     python3 tools/profile_torch_adapt.py [--configs float64 float32 ...]
+                                         [--signal sa19|stress] [--peaks]
+                                         [--warm N] [--timed N]
                                          [--out OUT_PREFIX] [--trace]
 """
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -32,14 +44,21 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import eaqhm_torch  # noqa: E402
+from eaqhm_torch import benchmarks  # noqa: E402
 
 SPANS = ("eaqhm/pitch", "eaqhm/fit", "eaqhm/solve", "eaqhm/tracks",
          "eaqhm/adapt_loop")
+# host-side runtime calls that put work on the device
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+            "cudaGraphLaunch")
 
 
-def config_of(spec):
+def config_of(spec, signal):
     parts = spec.split(":")
-    kw = {"gender": "female", "dtype": parts[0]}
+    kw = ({"gender": "female"} if signal == "sa19"
+          else {"gender": "male", "max_adaptations": 10})
+    kw["dtype"] = parts[0]
     for p in parts[1:]:
         if p == "fused":
             kw["fused_adapt_loop"] = True
@@ -48,25 +67,90 @@ def config_of(spec):
     return eaqhm_torch.EaqhmConfig(**kw)
 
 
-def profile_config(sig, spec, out, trace):
-    cfg = config_of(spec)
-    for _ in range(2):                                           # warm-up
-        eaqhm_torch.analyze(sig, 16000, cfg, device="cuda")
+def span_launches(prof, name):
+    """Launches the host issued inside each instance of the span ``name``
+    (runtime events whose start falls in the span's host interval)."""
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+    starts = sorted(e.time_range.start for e in events
+                    if e.name in LAUNCHES)
+    out = []
+    for a, b in spans:
+        out.append(int(np.searchsorted(starts, b, side="right")
+                       - np.searchsorted(starts, a, side="left")))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def stage_peaks(sig, fs, cfg):
+    """One call with the peak device memory reset before every fit, solve
+    and tracks-stage call and read after it: {stage: largest peak GiB}."""
+    from eaqhm_torch.models import engine
+    from eaqhm_torch.ops import solver
+    peaks = {"fit": 0.0, "solve": 0.0, "tracks": 0.0}
+
+    def wrap(owner, attr, stage):
+        orig = getattr(owner, attr)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            peaks[stage] = max(peaks[stage],
+                               torch.cuda.max_memory_allocated() / 2**30)
+            return out
+        setattr(owner, attr, run)
+        return orig
+
+    patched = [(solver, "iqhm_gram_tables", "fit"),
+               (solver, "eaqhm_gram_tables", "fit"),
+               (solver, "solve_gram", "solve"),
+               (engine._Adapter, "_finish", "tracks")]
+    origs = [wrap(*p) for p in patched]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        for (owner, attr, _), orig in zip(patched, origs):
+            setattr(owner, attr, orig)
+    torch.cuda.synchronize()
+    return {"stage_peak_gib": peaks, "wall_s": wall, "srer": res.srer,
+            "call_peak_gib_after_last_stage":
+                torch.cuda.max_memory_allocated() / 2**30}
+
+
+def profile_config(sig, fs, spec, args):
+    cfg = config_of(spec, args.signal)
+    for _ in range(args.warm):
+        eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
     torch.cuda.synchronize()
     warm = []
-    for _ in range(3):
+    for _ in range(args.timed):
         t0 = time.time()
-        res = eaqhm_torch.analyze(sig, 16000, cfg, device="cuda")
+        res = eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
         torch.cuda.synchronize()
         warm.append(time.time() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        res = eaqhm_torch.analyze(sig, 16000, cfg, device="cuda")
+        res = eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
-    if trace:
-        prof.export_chrome_trace(f"{out}_{spec.replace(':', '_')}.json")
+    if args.trace:
+        prof.export_chrome_trace(f"{args.out}_{spec.replace(':', '_')}.json")
     avg = prof.key_averages()
     # device work = the CUDA-side events (kernels, copies).  The spans'
     # CUDA-side entries are GPU annotations: the device-timeline range from
@@ -79,36 +163,57 @@ def profile_config(sig, spec, out, trace):
     kernels = sorted(((e.key[:120], e.self_device_time_total / 1e6, e.count)
                       for e in dev), key=lambda k: -k[1])[:15]
     busy = busy_us / 1e6
-    return {
-        "config": spec, "srer": res.srer, "warm_wall_s": warm,
-        "profiled_wall_s": wall, "device_busy_s": busy,
+    tracks_launches = span_launches(prof, "eaqhm/tracks")
+    n_tracks = len(tracks_launches)
+    out = {
+        "config": spec, "signal": args.signal, "srer": res.srer,
+        "warm_wall_s": warm, "profiled_wall_s": wall,
+        "device_busy_s": busy,
         # against the median unprofiled wall (the profiler slows the host)
-        "device_idle_share": 1.0 - busy / sorted(warm)[1],
+        "device_idle_share": 1.0 - busy / sorted(warm)[len(warm) // 2],
         "device_idle_share_profiled": 1.0 - busy / wall,
         "per_adaptation_s": [m["seconds"] for m in res.metrics],
         "fused": res.fused, "timings": res.timings,
-        "span_device_s": spans, "top_kernels": kernels, "tiers": res.tiers,
+        "span_device_s": spans,
+        "tracks_spans": n_tracks,
+        "tracks_device_s_per_span": (spans.get("eaqhm/tracks", 0.0)
+                                     / max(n_tracks, 1)),
+        "tracks_launches_per_span": tracks_launches,
+        "top_kernels": kernels, "tiers": res.tiers,
     }
+    if args.peaks:
+        out["peaks"] = stage_peaks(sig, fs, cfg)
+    out["card"] = _card()
+    print(json.dumps({k: out[k] for k in (
+        "config", "signal", "card", "warm_wall_s", "device_idle_share",
+        "span_device_s", "tracks_spans", "tracks_device_s_per_span",
+        "tracks_launches_per_span") + (("peaks",) if args.peaks else ())}),
+        flush=True)
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="+", default=["float64", "float32"])
+    ap.add_argument("--signal", choices=("sa19", "stress"), default="sa19")
+    ap.add_argument("--peaks", action="store_true",
+                    help="also the peak device memory of each stage")
+    ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--timed", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     ap.add_argument("--trace", action="store_true",
                     help="also write a Chrome trace per configuration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_adapt: no CUDA device")
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    sig = np.load(os.path.join(ROOT, "tests", "golden",
-                               "sa19_golden.npz"))["s_recon"]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
-    report = {"card": card, "torch": torch.__version__,
-              "runs": [profile_config(sig, c, args.out, args.trace)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    if args.signal == "sa19":
+        sig = np.load(os.path.join(ROOT, "tests", "golden",
+                                   "sa19_golden.npz"))["s_recon"]
+    else:
+        sig = benchmarks.stress_signal()
+    report = {"card": _card(), "torch": torch.__version__,
+              "runs": [profile_config(sig, benchmarks.FS, c, args)
                        for c in args.configs]}
     with open(args.out + ".json", "w") as f:
         json.dump(report, f, indent=1)
