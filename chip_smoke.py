@@ -117,12 +117,17 @@
    stage; stress prints the tracks span per eaQHM adaptation and the peak
    device memory of the stage beside the torch-op stage's.  Then the
    kernels against the plain version at every launch shape and mode the
-   paths made (G, n, K, L, step, fs, type), on seeded anchor grids of that
-   shape (tests/torch_track_cases.py): track_spline's M, every output of
-   the stage and the SRER, to 1e-10 (float64) / 2e-5 (float32) of the
-   largest entry and 1e-9 / 1e-4 dB, float32's flipped segments (the
-   phase-end round at a tie) counted, fewer than 1 in 10^4; per shape each
-   kernel's ms beside the plain version's and its bound.
+   paths made (G, n, K, L, step, fs, type) and at edge shapes (two anchors,
+   fewer than one spline tile, runs across many tiles), on seeded anchor
+   grids of that shape (tests/torch_track_cases.py): track_spline's M,
+   every output of the stage and the SRER, to 1e-10 (float64) / 2e-5
+   (float32) of the largest entry and 1e-9 / 1e-4 dB, float32's flipped
+   segments (the phase-end round at a tie) counted, fewer than 1 in 10^4;
+   at the engine's shapes the tiers read through the frame map
+   (stage_tiers) equal bit for bit to the dense form; per shape each
+   kernel's ms beside the plain version's and its bound, its registers,
+   spilled bytes (asserted 0) and blocks a SM; kernel ms from a CUDA
+   graph of launches replayed (the device's time, no host gap).
 15. One JSON line of the kernels (each kernel at every launch the paths
    made, the block inverse per type at every call, fit_basis and fit_gram
    over every shape, the tracks kernels over every shape, launches counted
@@ -207,6 +212,9 @@ BI_RUNS = {}
 # type), fit_basis launches, fit_gram launches, launches in graph replays)
 FIT_RUNS = {}
 STRESS_EAQHM = {}           # eaQHM adaptations of each stress run
+# wrapper calls a stress tracks span (track_spline, track_synth, track_srer):
+# the tracks phase turns them into device launches
+STRESS_SPAN_CALLS = {}
 # the fit kernels against the plain version (relative to the largest entry
 # of R, rhs, dinv and A): complex128 to rounding; complex64 also sums the
 # phase's fractional cumsum in a tree order (the integer one in row order
@@ -229,6 +237,17 @@ TRACK_RUNS = {}
 # tie (fm_current off by more than 1e-3 fs) is counted and left out
 TRACK_TOL = {"float64": 1e-10, "float32": 2e-5}
 TRACK_SRER_TOL_DB = {"float64": 1e-9, "float32": 1e-4}
+# shapes the tracks phase checks beside the paths' own (no launch of the
+# paths, so no share of the kernels line's sums): (G, n, K, L, step, fs,
+# mode, type) and the acceptance rate of the grid.  Two anchors; fewer
+# anchors than one spline tile; runs of up to ~100 anchors across several
+# 32-anchor tiles; SA19's grid with runs across many tiles
+TRACK_EDGES = tuple(
+    ((1, n, K, (n - 1) * 15 + 1 + extra, 15, 16000.0,
+      ("sum", True, False, True, True), t), p_acc)
+    for n, K, extra, p_acc in ((2, 1, 7, 0.8), (20, 7, 20, 0.8),
+                               (200, 9, 21, 0.99), (2185, 48, 7, 0.99))
+    for t in ("float64", "float32"))
 # the stress stage per eaQHM adaptation and its peak device memory as torch
 # ops, before the kernels (tools/profile_torch_adapt.py --signal stress
 # --peaks, PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
@@ -253,6 +272,35 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean milliseconds of fn on the device timeline: reps calls captured
+    into one CUDA graph, replayed (no host gap between the launches, which
+    at small shapes take less time than the host needs to issue them)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (3 * reps)
 
 
 def hpd_batch(B, M, seed, dtype, device):
@@ -862,7 +910,7 @@ def graph_launches(torch, fn):
     fails."""
     import ctypes
 
-    from eaqhm_torch.ops import block_inverse
+    from eaqhm_torch.ops import block_inverse, tracks
     cu = ctypes.CDLL("libcuda.so.1")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -873,6 +921,7 @@ def graph_launches(torch, fn):
     with torch.cuda.graph(g, stream=side):
         fn()
     block_inverse.take_captured()         # launches of a capture, not a run
+    tracks.take_captured()
     h = ctypes.c_void_p(g.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     assert cu.cuGraphGetNodes(h, None, ctypes.byref(n)) == 0
@@ -1344,7 +1393,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         shapes[f"{dt}_stress"] = sh
         bi_calls, bi_n, _ = take_bi(f"{dt}_stress", expect=dt == "float32")
         take_fit(f"{dt}_stress")
-        take_tracks(f"{dt}_stress")
+        tr = take_tracks(f"{dt}_stress")
         peak = stage_peak.call
         per = spans.per_adaptation()
         assert len(per) == len(res.srer) == len(res.metrics), (len(per),
@@ -1364,10 +1413,15 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
                 f"{ {k: round(v, 4) for k, v in per[a].items()} }")
         eaqhm = per[1:] or per
         STRESS_EAQHM[dt] = len(res.srer) - 1
+        STRESS_SPAN_CALLS[dt] = tuple(len(x) / len(per) for x in tr[:3])
         log(f"stress {dt} per eaQHM adaptation (mean of {len(eaqhm)}): solve "
             f"{np.mean([p.get('solve', 0.0) for p in eaqhm]):.4f} s beside "
             f"fit {np.mean([p.get('fit', 0.0) for p in eaqhm]):.4f} s and "
             f"tracks {np.mean([p.get('tracks', 0.0) for p in eaqhm]):.4f} s "
+            f"in {STRESS_SPAN_CALLS[dt][0]:g} / {STRESS_SPAN_CALLS[dt][1]:g}"
+            f" / {STRESS_SPAN_CALLS[dt][2]:g} calls a span of track_spline / "
+            f"track_synth / track_srer (the wrappers' counts; the tracks "
+            f"phase counts their device launches) "
             f"(the torch-op stage before the kernels: "
             f"{TRACKS_BEFORE[dt][0]}); peak device memory of the tracks "
             f"stage {stage_peak.stage / 2**30:.2f} GiB (before the kernels "
@@ -1900,7 +1954,7 @@ def fit_phase(torch, fit):
     return entries
 
 
-def tracks_inputs(torch, key, seed):
+def tracks_inputs(torch, key, seed, p_acc=0.8):
     """The anchors of one tracks launch (the shape and mode the paths
     launched) on the card: tests/torch_track_cases.anchor_case at that
     shape, masked as the launch's caller masks them."""
@@ -1908,7 +1962,7 @@ def tracks_inputs(torch, key, seed):
     G, n, K, L, step, fs, (dc, anchors, dense, acc, voiced), tname = key
     dt = getattr(torch, tname)
     c = anchor_case(seed, G=G, n=n, K=K, step=step,
-                    extra=L - (n - 1) * step - 1, fs=fs)
+                    extra=L - (n - 1) * step - 1, fs=fs, p_acc=p_acc)
     t = {k: torch.as_tensor(c[k], device="cuda") for k in c
          if isinstance(c[k], np.ndarray)}
     for k in ("am", "fm", "ph", "a0", "det"):
@@ -1943,26 +1997,76 @@ def tracks_costs(key, isz):
     return spline, synth, srer
 
 
+def tier_form(torch, tracks, t, kw, n):
+    """The anchors of an engine launch as the sequential engine hands them
+    to the stage: three tiers (Kb = K - 2, K - 1, K; the grid's frames in
+    turn, one frame in no tier, an index past the grid) and the frame map.
+    Returns (Tiers, voiced [1, n])."""
+    K = t["am"].shape[2]
+    dev = t["am"].device
+    g = torch.Generator().manual_seed(n)
+    frames = torch.randperm(n, generator=g)
+    idx = [frames[1 + i::3].sort().values for i in range(3)]
+    idx[2] = torch.cat([idx[2], torch.tensor([n])])
+    parts = []
+    for kb, ix in zip((max(K - 2, 0), max(K - 1, 0), K), idx):
+        r = ix.clamp(max=n - 1).to(dev)
+        parts.append((t["a0"][0, r], t["am"][0, r, :kb], t["fm"][0, r, :kb],
+                      t["ph"][0, r, :kb], kw["acc"][0, r, :kb]))
+    fmap = tracks.tier_map([ix.to(dev) for ix in idx], n, dev)
+    return tracks.Tiers(fmap, tuple(parts), K), (fmap >= 0)[None]
+
+
 def tracks_phase(torch, tracks):
     """The tracks kernels against their plain version at every launch shape
-    and mode the paths made (TRACK_RUNS), on seeded anchor grids drawn at
-    that shape (tests/torch_track_cases.py: runs of every length, a column
-    with no run, runs to both ends, values outside the acceptance): M of
-    track_spline against the plain spline, every output of the stage
-    against the plain stage (TRACK_TOL of the largest entry; float32's
-    flipped segments counted, asserted fewer than 1 in 10^4 pair segments,
-    and left out), the SRER against the plain SRER (TRACK_SRER_TOL_DB).
-    Per shape the kernels' ms beside the plain version's and the bounds.
-    Returns the three kernels-line entries."""
+    and mode the paths made (TRACK_RUNS), and at TRACK_EDGES, on seeded
+    anchor grids drawn at that shape (tests/torch_track_cases.py: runs of
+    every length, a column with no run, runs to both ends, values outside
+    the acceptance): M of track_spline against the plain spline, every
+    output of the stage against the plain stage (TRACK_TOL of the largest
+    entry; float32's flipped segments counted, asserted fewer than 1 in
+    10^4 pair segments, and left out), the SRER against the plain SRER
+    (TRACK_SRER_TOL_DB); at the engine's shapes the same anchors as tiers
+    read through the frame map (stage_tiers) bit for bit equal to the
+    dense form on the gathered grid.  Per shape the kernels' ms beside the
+    plain version's and the bounds, each kernel's registers, spilled bytes
+    and blocks a SM.  Returns the three kernels-line entries."""
     from torch_track_cases import stage_errors
+    from eaqhm_torch.kernels import build
     counts = Counter(sh for rec in TRACK_RUNS.values() for sh in rec[1])
+    ptx = build.ptxas_report("tracks")
+
+    def regs(name):
+        """(registers, spilled bytes) of each instantiation of a kernel."""
+        return sorted({(v["registers"], v.get("spill_stores", 0))
+                       for k, v in ptx.items() if name in k})
+    log(f"tracks kernels ptxas (registers, spill bytes): spline_tiles "
+        f"{regs('spline_tiles')}, spline_apply {regs('spline_apply')}, "
+        f"track_synth {regs('track_synth')}, track_srer "
+        f"{regs('track_srer')}")
+    assert all(sp == 0 for name in ("spline_tiles", "spline_apply",
+                                    "track_synth")
+               for _, sp in regs(name)), ptx
     keys = ("ms", "plain_ms", "t_bytes", "t_ops")
     tot = {k: dict.fromkeys(keys, 0.0) for k in ("spline", "synth", "srer")}
     err = {"spline": 0.0, "synth": 0.0, "srer": 0.0}
     flips_all = pairs_all = 0
-    for i, (key, count) in enumerate(sorted(counts.items(), key=str)):
+    launches_per_call = {"spline": set(), "synth": set(), "srer": set()}
+    cases = [(key, count, 0.8) for key, count in
+             sorted(counts.items(), key=str)]
+    cases += [(key, 0, p_acc) for key, p_acc in TRACK_EDGES]
+    # the kernels line's shapes, counts and seeds, for
+    # tools/bench_tracks_phases.py --line (another commit's kernels timed
+    # on the same inputs, summed the same way)
+    scratch = os.path.join(ROOT, "eaqhm_torch", "kernels", "build")
+    os.makedirs(scratch, exist_ok=True)        # listed in .gitignore
+    with open(os.path.join(scratch, "tracks_line_shapes.json"), "w") as f:
+        json.dump([list(key) + [count, 6000 + i]
+                   for i, (key, count, _) in enumerate(cases) if count], f)
+    for i, (key, count, p_acc) in enumerate(cases):
         G, n, K, L, step, fs, mode_t, tname = key
-        t, args, kw, mode = tracks_inputs(torch, key, seed=6000 + i)
+        t, args, kw, mode = tracks_inputs(torch, key, seed=6000 + i,
+                                          p_acc=p_acc)
         am, fm, ph, a0 = args[:4]
         tracks.reset_counts()
         M = tracks.track_spline(am, fm, kw["acc"], a0, kw["voiced"], step)
@@ -1971,7 +2075,11 @@ def tracks_phase(torch, tracks):
         want = tracks.stage_reference(*args, **kw, **mode)
         torch.cuda.synchronize()
         assert tracks.plain_calls() == 0 and tracks.track_synth.launches == 1
-        e_m = rel_err(M, M_ref) if M_ref.numel() else 0.0
+        assert all(bool(torch.isfinite(x).all())
+                   for x in (M, got.am, got.fm_cur, got.s)), key
+        e_m = ((M - M_ref).abs().max().double()
+               / M_ref.abs().max().double().clamp(min=1e-300)).item() \
+            if M_ref.numel() else 0.0
         errs, flips, e_abs = stage_errors(got, want, step, n, flip_hz=(
             1e-3 * fs if tname == "float32" else None))
         pairs = int((t["acc"][:, :-1] & t["acc"][:, 1:]).sum())
@@ -1982,6 +2090,24 @@ def tracks_phase(torch, tracks):
         assert flips * 1e4 < max(pairs, 1), (key, flips, pairs)
         err["spline"] = max(err["spline"], (M - M_ref).abs().max().item())
         err["synth"] = max(err["synth"], e_abs)
+        tiers_eq = None
+        if G == 1 and mode_t[3] and mode_t[4] and mode["anchors"] and \
+                not mode["dense"]:
+            tiers, voiced = tier_form(torch, tracks, t, kw, n)
+            a0_g, am_g, fm_g, ph_g, acc_g = tracks.gather_tiers_reference(
+                tiers)
+            via_map = tracks.stage_tiers(tiers, step, fs, L, voiced=voiced,
+                                         **mode)
+            on_grid = tracks.stage(am_g[None], fm_g[None], ph_g[None],
+                                   a0_g[None], step, fs, L, acc=acc_g[None],
+                                   voiced=voiced, **mode)
+            tiers_eq = all(x is None or torch.equal(x, y)
+                           for x, y in zip(via_map, on_grid))
+            assert tiers_eq and tracks.plain_calls() == 0, key
+            # the sequential engine's call: its device launches, counted
+            tiers_launches = graph_launches(torch, lambda: tracks.stage_tiers(
+                tiers, step, fs, L, voiced=voiced, **mode))
+            assert tiers_launches == 3, (key, tiers_launches)
         if mode["dc"] == "sum":
             det, s_rec = t["det"][0], got.s[0]
             nv = int(t["lens"][0])
@@ -1995,14 +2121,29 @@ def tracks_phase(torch, tracks):
         d_srer = (srer - srer_ref).abs().max().item()
         assert d_srer <= TRACK_SRER_TOL_DB[tname], (key, d_srer)
         err["srer"] = max(err["srer"], d_srer)
-        reps = 3 if count > 1 else 1
-        ms = {"spline": cuda_ms(lambda: tracks.track_spline(
+        reps = 10 if count > 1 else 3
+        ms = {"spline": graph_ms(lambda: tracks.track_spline(
                   am, fm, kw["acc"], a0, kw["voiced"], step), reps),
-              "synth": cuda_ms(lambda: tracks.track_synth(
+              "synth": graph_ms(lambda: tracks.track_synth(
                   am, fm, ph, kw["acc"], a0, kw["voiced"], M, step, fs, L,
                   **mode), reps),
-              "srer": cuda_ms(lambda: tracks.masked_srer(det, s_rec, **skw),
-                              reps)}
+              "srer": graph_ms(lambda: tracks.masked_srer(det, s_rec, **skw),
+                               reps)}
+        tracks.take_captured()
+        # device launches of one call of each wrapper, counted on the card
+        # from a captured graph's nodes (the counts count calls)
+        per_call = {
+            "spline": graph_launches(torch, lambda: tracks.track_spline(
+                am, fm, kw["acc"], a0, kw["voiced"], step)),
+            "synth": graph_launches(torch, lambda: tracks.track_synth(
+                am, fm, ph, kw["acc"], a0, kw["voiced"], M, step, fs, L,
+                **mode)),
+            "srer": graph_launches(torch, lambda: tracks.masked_srer(
+                det, s_rec, **skw))}
+        assert per_call == {"spline": 2, "synth": 1, "srer": 1}, (key,
+                                                                 per_call)
+        for k, v in per_call.items():
+            launches_per_call[k].add(v)
         pms = {"spline": cuda_ms(lambda: tracks.spline_reference(
                    am, fm, a0, step, **kw), 1),
                "synth": cuda_ms(lambda: tracks.stage_reference(
@@ -2017,26 +2158,46 @@ def tracks_phase(torch, tracks):
             for k2, v in zip(keys, (ms[k], pms[k], t_b, t_o)):
                 tot[k][k2] += count * v
             line[k] = max(t_b, t_o)
+        occ = {**tracks.occupancy("track_spline", G, n, K, step, L,
+                                  t["am"].dtype),
+               **tracks.occupancy("track_synth", G, n, K, step, L,
+                                  t["am"].dtype)}
+        R, tiles, _ = tracks.spline_plan(G, n, K)
+        plan = tracks.synth_plan(G, n, K, step, L, t["am"].element_size())
         log(f"tracks kernels {tname} G={G} n={n} K={K} L={L} step={step} "
-            f"fs={fs:g} mode={mode_t} x{count}: track_spline "
-            f"{ms['spline']:.3f} ms (plain {pms['spline']:.3f}, bound "
-            f"{line['spline']:.4f}), track_synth {ms['synth']:.3f} ms (the "
-            f"plain stage {pms['synth']:.3f}, bound {line['synth']:.4f}), "
-            f"track_srer {ms['srer']:.3f} ms (plain {pms['srer']:.3f}, bound "
-            f"{line['srer']:.4f}); max_rel_err M {e_m:.2e}, stage "
-            f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (asserted <= "
-            f"{TRACK_TOL[tname]:g}), SRER |d| {d_srer:.2e} dB; flipped "
-            f"segments {flips} of {pairs} pairs")
+            f"fs={fs:g} mode={mode_t} x{count}"
+            f"{'' if count else f' (edge, p_acc={p_acc})'}: track_spline "
+            f"{ms['spline']:.4f} ms (plain {pms['spline']:.3f}, bound "
+            f"{line['spline']:.4f}; {tiles} tiles of {R} x "
+            f"{-(-(G * K + G) // 32)} column tiles), track_synth "
+            f"{ms['synth']:.4f} ms (the plain stage {pms['synth']:.3f}, bound "
+            f"{line['synth']:.4f}; {plan.blocks} blocks of {plan.threads}, "
+            f"S={plan.S} J={plan.J} kept={plan.kept}), track_srer "
+            f"{ms['srer']:.3f} ms (plain {pms['srer']:.3f}, bound "
+            f"{line['srer']:.4f}); device launches a call {per_call}; "
+            f"blocks a SM {occ}; max_rel_err M "
+            f"{e_m:.2e}, stage { {k: f'{v:.2e}' for k, v in errs.items()} } "
+            f"(asserted <= {TRACK_TOL[tname]:g}), SRER |d| {d_srer:.2e} dB; "
+            f"flipped segments {flips} of {pairs} pairs; tiers through the "
+            f"frame map equal to the dense form: {tiers_eq}")
         del t, args, got, want, M, M_ref
         torch.cuda.empty_cache()
     log(f"tracks phase: flipped segments (float32 phase-end ties) "
         f"{flips_all} of {pairs_all} pair segments over every launch")
+    pc = [max(launches_per_call[k]) for k in ("spline", "synth", "srer")]
+    for dt, calls in STRESS_SPAN_CALLS.items():
+        log(f"stress {dt} tracks span: "
+            f"{sum(c * p for c, p in zip(calls, pc)):g} device launches "
+            f"(calls {calls} of track_spline / track_synth / track_srer x "
+            f"device launches a call {pc}, counted from captured graphs' "
+            f"nodes; stage_tiers, the engine's call: 3)")
     entries = []
     for key, name, replaces, also in (
             ("spline", "track_spline", "eaqhm_tpu/models/tracks.py:43",
              ["eaqhm_tpu/ops/interp.py:161"]),
             ("synth", "track_synth", "eaqhm_tpu/models/tracks.py:143",
              ["eaqhm_tpu/ops/interp.py:124", "eaqhm_tpu/ops/interp.py:161",
+              "eaqhm_tpu/models/engine.py:424",
               "eaqhm_tpu/models/engine.py:549",
               "eaqhm_tpu/parallel/batch_engine.py:321"]),
             ("srer", "track_srer", "eaqhm_tpu/models/engine.py:451",
@@ -2049,6 +2210,7 @@ def tracks_phase(torch, tracks):
             "source": "eaqhm_torch/kernels/csrc/tracks.cu",
             "replaces": replaces, "replaces_also": also,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "kernel_launches_per_call": max(launches_per_call[key]),
             "max_abs_err": err[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t["t_bytes"], t["t_ops"]),
             "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]

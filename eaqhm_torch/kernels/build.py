@@ -5,13 +5,17 @@ with a plain C interface under ``build/`` (listed in .gitignore) and loaded
 with ``ctypes``.  The library name carries a hash of the source and flags, so
 an edited source is rebuilt at first use and an unchanged one is reused.
 Nothing is built or loaded when this module is imported; ``load`` builds a
-library at its first use, under a lock of its own.
+library at its first use, under a lock of its own.  ``load_host`` builds a
+header of plain C++ (a kernel's launch plan, which its source includes) with
+the host's C++ compiler, so the plans are read where there is no CUDA
+toolkit.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,20 +69,31 @@ KERNELS = {
         "fit_gram_c128": [_P] * 4 + [_I, _I, _I, _P],
     }),
     "tracks": ("tracks.cu", {
-        "track_spline_f32": [_P] * 8 + [_I, _I, _I, _L, _L, _I, _P],
-        "track_spline_f64": [_P] * 8 + [_I, _I, _I, _L, _L, _I, _P],
-        "track_synth_f32": [_P] * 16 + [_I, _I, _I, _I, _L, _L, _L, _I, _D,
-                                        _P],
-        "track_synth_f64": [_P] * 16 + [_I, _I, _I, _I, _L, _L, _L, _I, _D,
-                                        _P],
+        "track_spline_f32": [_P] * 5 + [_I] * 5 + [_P],
+        "track_spline_f64": [_P] * 5 + [_I] * 5 + [_P],
+        "track_synth_f32": [_P] * 11 + [_I, _I, _I, _I, _L, _I, _D, _P],
+        "track_synth_f64": [_P] * 11 + [_I, _I, _I, _I, _L, _I, _D, _P],
         "track_srer_f32": [_P] * 5 + [_I, _L, _L, _L, _P],
         "track_srer_f64": [_P] * 5 + [_I, _L, _L, _L, _P],
+        "track_prepare": [],
+        "track_occupancy": [_I, _I, _I],
+        "track_phase_clocks": [_P],
     }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
         "lfilter_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
     }),
 }
+
+# host library name -> (header under csrc/, {symbol: argtypes}): built by
+# the host's C++ compiler
+HOST = {
+    "tracks_plan": ("tracks_plan.h", {
+        "track_spline_plan": [_I, _I, _I, _P],
+        "track_synth_plan": [_I, _I, _I, _I, _L, _I, _P],
+    }),
+}
+CXX_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC"]
 
 # nvcc flags of one library beside NVCC_FLAGS: the tracks stage rounds every
 # product and sum on its own, as the torch ops it replaces
@@ -99,28 +114,50 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str, flags: tuple) -> str:
-    src, _ = KERNELS[name]
+def _cxx() -> str:
+    for name in ("c++", "g++", "clang++"):
+        path = shutil.which(name)
+        if path is not None:
+            return path
+    raise RuntimeError("no C++ compiler found for the kernels' launch plans")
+
+
+def _source_bytes(src: str) -> bytes:
+    """A source and the csrc/ headers it includes ("..."), for the hash."""
     with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+        text = f.read()
+    for inc in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
+            text += f.read()
+    return text
+
+
+def _lib_path(name: str, flags: tuple) -> str:
+    src = (KERNELS.get(name) or HOST[name])[0]
+    digest = hashlib.sha256(_source_bytes(src) + " ".join(flags).encode())
     return os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def _build(name: str, flags: tuple) -> str:
-    """Run nvcc for one library unless it is built; returns its path."""
+def _build(name: str, flags: tuple, host: bool = False) -> str:
+    """Run nvcc (host: the C++ compiler) for one library unless it is
+    built; returns its path."""
     out = _lib_path(name, flags)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, KERNELS[name][0])]
+    if host:
+        cmd = [_cxx(), *flags, "-o", tmp, os.path.join(CSRC, HOST[name][0])]
+    else:
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp,
+               os.path.join(CSRC, KERNELS[name][0])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed for {name}:\n{proc.stderr}")
     os.replace(tmp, out)       # atomic: a concurrent build sees all or none
-    with open(out + ".ptxas.txt", "w") as f:
-        f.write(proc.stderr)
+    if not host:
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(proc.stderr)
     return out
 
 
@@ -144,9 +181,60 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     return _loaded[key]
 
 
-def _bind(key, path: str) -> None:
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of HOST (a launch plan), built first if
+    needed; as ``load``, safe from several threads."""
+    key = (name, "host")
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    with _locks_guard:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _loaded:
+            _bind(key, _build(name, tuple(CXX_FLAGS), host=True),
+                  HOST[name][1])
+    return _loaded[key]
+
+
+def read_ptxas(path: str) -> dict:
+    """Per kernel of a ptxas -v report: registers, spill bytes and static
+    shared memory."""
+    out, kernel = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                kernel = m.group(1)
+                continue
+            if kernel is None:
+                continue
+            row = out.setdefault(kernel, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                row["spill_stores"], row["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                row["static_smem"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def ptxas_report(name: str, defines: tuple = ()) -> dict:
+    """read_ptxas of a built library (the ``*.ptxas.txt`` beside it)."""
+    flags = (tuple(NVCC_FLAGS) + EXTRA_FLAGS.get(name, ())
+             + tuple(f"-D{d}" for d in defines))
+    return read_ptxas(_lib_path(name, flags) + ".ptxas.txt")
+
+
+def _bind(key, path: str, syms=None) -> None:
     lib = ctypes.CDLL(path)
-    for sym, argtypes in KERNELS[key[0]][1].items():
+    for sym, argtypes in (syms or KERNELS[key[0]][1]).items():
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

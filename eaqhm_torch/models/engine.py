@@ -357,30 +357,6 @@ def _eaqhm_bucket(s, fm_current, am_current, centers, wl, dead, mask_k,
     return eaqhm_accept(amps, fmis, fmc, dead, h, do_update, Kc)
 
 
-def _combine_buckets(parts, idx_list, No: int, Kcm: int, dtype):
-    """Scatter per-tier frame results onto the full frame grid.
-
-    parts: list of (a0 [Nb], am/fm/ph [Nb, Kb], acc [Nb, Kb]); idx_list:
-    [Nb] frame indices.  Row No is a dump row for out-of-grid entries
-    (sliced off), as in the JAX engine.  Returns full-grid arrays.
-    """
-    dev = parts[0][0].device
-    a0 = torch.zeros(No + 1, dtype=dtype, device=dev)
-    am = torch.zeros((No + 1, Kcm), dtype=dtype, device=dev)
-    fm = torch.zeros_like(am)
-    ph = torch.zeros_like(am)
-    acc = torch.zeros((No + 1, Kcm), dtype=torch.bool, device=dev)
-    for (a0_b, am_b, fm_b, ph_b, acc_b), idx in zip(parts, idx_list):
-        idx = idx.clamp(0, No)
-        Kb = am_b.shape[1]
-        a0[idx] = a0_b
-        am[idx, :Kb] = am_b
-        fm[idx, :Kb] = fm_b
-        ph[idx, :Kb] = ph_b
-        acc[idx, :Kb] = acc_b
-    return a0[:No], am[:No], fm[:No], ph[:No], acc[:No]
-
-
 class Adaptation(NamedTuple):
     """One adaptation's result, as the loops read it: the dense am and
     fm_current the next adaptation's fits read [L, Kc], the anchor rows of
@@ -427,6 +403,10 @@ class _Adapter:
         for t in self.tiers:
             voiced[t["idx"]] = True
         self.voiced = voiced
+        # where each frame's tier result lands (ops.tracks.tier_map): the
+        # tracks stage reads the tiers through it
+        self.fmap = tracks_ops.tier_map([t["idx"] for t in self.tiers],
+                                        geo.No_pad, dev)
 
     def key(self, do_update: bool):
         """Everything an adaptation's launches depend on besides the
@@ -440,7 +420,7 @@ class _Adapter:
 
     def load(self, other: "_Adapter") -> None:
         """Copy another utterance's tensors of the same key in."""
-        for name in ("s", "det", "std_det", "all_centers", "voiced"):
+        for name in ("s", "det", "std_det", "all_centers", "voiced", "fmap"):
             getattr(self, name).copy_(getattr(other, name))
         for t, u in zip(self.tiers, other.tiers):
             for name in ("idx", "centers", "f0", "K", "wl"):
@@ -449,17 +429,16 @@ class _Adapter:
 
     def _finish(self, parts, out=None) -> Adaptation:
         """Frame results to tracks, synthesis and SRER: on CUDA the tracks
-        kernels (ops.tracks), on the CPU their plain version.  out: (am,
-        fm_cur) [L, Kc] buffers for the dense tracks (the fused loop's
-        state, which every fit of the adaptation has read by then)."""
+        kernels (ops.tracks), which read each tier's results (a0, am, fm,
+        ph, acc) through the frame map, on the CPU their plain version.
+        out: (am, fm_cur) [L, Kc] buffers for the dense tracks (the fused
+        loop's state, which every fit of the adaptation has read by
+        then)."""
         g = self.geo
         with record_function("eaqhm/tracks"):
-            a0_v, am_v, fm_v, ph_v, acc_v = _combine_buckets(
-                parts, [t["idx"] for t in self.tiers], g.No_pad, self.Kcm,
-                self.s.dtype)
-            st = tracks_ops.stage(
-                am_v[None], fm_v[None], ph_v[None], a0_v[None], self.step,
-                self.fs, g.Lpad, acc=acc_v[None], voiced=self.voiced[None],
+            st = tracks_ops.stage_tiers(
+                tracks_ops.Tiers(self.fmap, tuple(parts), self.Kcm),
+                self.step, self.fs, g.Lpad, voiced=self.voiced[None],
                 out=None if out is None else (out[0][None], out[1][None]))
             srer = tracks_ops.masked_srer(self.det, st.s[0],
                                           std_det=self.std_det,
@@ -637,6 +616,7 @@ class _FusedLoop:
             # kernel attributes set outside capture
             chol.library(self.ad.s.device)
             fit.library(self.ad.s.device)
+            tracks_ops.library(self.ad.s.device)
             if (self.ad.method or solver.default_solve_method(
                     self.ad.s.dtype)) == "block_inverse":
                 block_inverse.library(self.ad.s.device)

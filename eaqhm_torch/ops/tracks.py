@@ -10,17 +10,21 @@ one not-a-knot cubic over every anchor; s = a0 + 2 sum_k am cos(ph); and
 the masked SRER.  The JAX package's eaqhm_tpu/models/tracks.py
 ``interpolate_tracks_anchors`` (:143), eaqhm_tpu/ops/interp.py
 ``notaknot_interp_uniform`` (:161), eaqhm_tpu/models/engine.py
-``_scatter_and_interp`` (:549) and ``_masked_srer`` (:451), and the batch
-engine's ``_interp_and_synth`` (eaqhm_tpu/parallel/batch_engine.py:321),
-which XLA fuses on the TPU.
+``_combine_buckets`` (:424), ``_scatter_and_interp`` (:549) and
+``_masked_srer`` (:451), and the batch engine's ``_interp_and_synth``
+(eaqhm_tpu/parallel/batch_engine.py:321), which XLA fuses on the TPU.
 
 ``stage`` takes the anchors of G groups (utterances) of K harmonic columns,
 am, fm, ph [G, n, K] (any strides with the last 1, shared by the three),
 the optional acceptance mask acc [G, n, K], the DC anchors a0 [G, n] and
-the optional voiced mask [G, n].  On a CUDA tensor it launches two kernels
-of ``kernels/csrc/tracks.cu`` (no torch op between them):
-  ``track_spline``  the not-a-knot second derivatives M of every run of
-                    every column, the DC columns included;
+the optional voiced mask [G, n].  ``stage_tiers`` takes one utterance's
+per-tier frame results and the frame map that places them (``Tiers``,
+``tier_map``), so the sequential engine scatters no grid.  On CUDA tensors
+both launch the kernels of ``kernels/csrc/tracks.cu`` (no torch op between
+them):
+  ``track_spline``  (two launches: tiles, then apply) the not-a-knot second
+                    derivatives M of every run of every column, the DC
+                    columns included;
   ``track_synth``   every row of every column: dense am and fm_current
                     [G, L, K] (the next adaptation's fit reads them), the
                     anchor rows of am, fm and the corrected ph [3, G, n, K]
@@ -29,21 +33,25 @@ of ``kernels/csrc/tracks.cu`` (no torch op between them):
                     alone with the DC track apart), and with ``dense`` the
                     dense fm and ph.
 ``masked_srer`` launches ``track_srer``: per group the SRER over its first
-n_valid samples.  On CPU tensors both run the plain version (``*_reference``:
-the torch ops the port had before the kernels), counted in the entry's
-``.plain_calls``.  No CUDA call goes to the plain version.
+n_valid samples.  On CPU tensors they run the plain version
+(``*_reference``: the torch ops the port had before the kernels; the tiers
+gathered into the grid first), counted in the entry's ``.plain_calls``.  No
+CUDA call goes to the plain version.  ``spline_plan`` and ``synth_plan``
+read the kernels' launch geometry, which the launchers choose themselves
+(kernels/csrc/tracks_plan.h, built for the host by ``build.load_host``).
 
 ``track_spline.launches`` / ``track_synth.launches`` /
-``track_srer.launches`` count kernel launches and ``.shapes`` record per
-launch (G, n, K, step, type) / (G, n, K, L, step, fs, (dc, anchors, dense,
-acc given, voiced given), type) / (G, L, per-group lengths, type); a
-launch recorded into a CUDA graph
-counts at each replay (``take_captured``, ``count_replay``,
-``.replayed``), as in ``ops.fit``.  The launches allocate their outputs and
-scratch with torch (graph-safe) and never synchronize.
+``track_srer.launches`` count calls (track_spline's two launches count as
+one) and ``.shapes`` record per call (G, n, K, step, type) / (G, n, K, L,
+step, fs, (dc, anchors, dense, acc given, voiced given), type) / (G, L,
+per-group lengths, type); a launch recorded into a CUDA graph counts at
+each replay (``take_captured``, ``count_replay``, ``.replayed``), as in
+``ops.fit``.  The launches allocate their outputs and scratch with torch
+(graph-safe) and never synchronize.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 from typing import NamedTuple, Optional
@@ -56,6 +64,7 @@ from eaqhm_torch.kernels import build
 CPLEN = 48          # cp fixed point reached to f64 eps by ~24 unknowns
 _lock = threading.Lock()
 _tls = threading.local()
+_prepared = set()
 
 
 # Host-built constants are made on the device once per (shape, dtype,
@@ -117,6 +126,42 @@ def _check(am, fm, ph, a0, acc, voiced, step, length):
                          f" + 1 = {(n - 1) * step + 1}")
 
 
+def _check_tiers(tiers, voiced, dt):
+    """What the kernels read through the frame map, as ``_check`` for the
+    dense form: fmap [n] int32, per tier a0 [Nb], am, fm, ph, acc [Nb, Kb]
+    with Kb <= K, am and fm of tier 0's type, ph and a0 real, acc bool or
+    uint8, voiced [1, n] bool or None; every tensor on the fmap's device."""
+    fmap = tiers.fmap
+    dev, n, K = fmap.device, fmap.shape[0], int(tiers.K)
+    if fmap.dim() != 1 or fmap.dtype != torch.int32:
+        raise ValueError(f"tracks stage: fmap {tuple(fmap.shape)} "
+                         f"{fmap.dtype} (needs [n] int32)")
+    if voiced is not None and (tuple(voiced.shape) != (1, n)
+                               or voiced.device != dev):
+        raise ValueError(f"tracks stage: voiced {tuple(voiced.shape)} on "
+                         f"{voiced.device} for [1, {n}] on {dev}")
+    for t, part in enumerate(tiers.parts):
+        a0, am, fm, ph, acc = part
+        Nb, Kb = am.shape if am.dim() == 2 else (-1, -1)
+        if Kb > K or tuple(a0.shape) != (Nb,) or any(
+                tuple(x.shape) != (Nb, Kb) for x in (fm, ph, acc)):
+            raise ValueError(f"tracks stage: tier {t}: a0 {tuple(a0.shape)},"
+                             f" am {tuple(am.shape)}, fm {tuple(fm.shape)}, "
+                             f"ph {tuple(ph.shape)}, acc {tuple(acc.shape)} "
+                             f"(needs [Nb] and [Nb, Kb], Kb <= K = {K})")
+        if am.dtype != dt or fm.dtype != dt or not (
+                ph.dtype.is_floating_point and a0.dtype.is_floating_point
+                and not ph.is_complex() and not a0.is_complex()) or \
+                acc.dtype not in (torch.bool, torch.uint8):
+            raise TypeError(f"tracks stage: tier {t}: am {am.dtype}, fm "
+                            f"{fm.dtype}, ph {ph.dtype}, a0 {a0.dtype}, acc "
+                            f"{acc.dtype} (am and fm {dt}, acc bool)")
+        if any(x.device != dev for x in part):
+            raise ValueError(f"tracks stage: tier {t} on "
+                             f"{[str(x.device) for x in part]}, the frame "
+                             f"map on {dev}")
+
+
 def _bytes(mask):
     """A bool mask as the kernels read it: contiguous bytes (a view, no
     copy, of a contiguous bool tensor)."""
@@ -135,28 +180,137 @@ def _layout(am, fm, ph):
     return am.contiguous(), fm.contiguous(), ph.contiguous()
 
 
-def spline_call(am, fm, acc, a0, voiced, step):
-    """One track_spline launch without the launch: (M [n, G*K + G], the
-    symbol, its arguments but the stream, the tensors to keep alive)."""
-    G, n, K = am.shape
-    dt, dev = am.dtype, am.device
+MAX_TIERS = 12      # tiers the kernels read (tracks.cu kMaxTiers)
+
+
+class SplinePlan(NamedTuple):
+    R: int          # anchors a tile
+    tiles: int      # tiles along the anchor axis
+    threads: int    # threads of a block (a warp a tile)
+
+
+class SynthPlan(NamedTuple):
+    Kl: int         # lanes a segment (the columns a thread steps over)
+    S: int          # segments side by side in a block
+    J: int          # slices of S segments a block takes in turn
+    threads: int    # S * Kl rounded up to whole warps
+    kept: bool      # fm kept between the passes
+    smem: int       # dynamic shared memory, bytes
+    blocks: int
+
+
+def _plans():
+    return build.load_host("tracks_plan")
+
+
+@functools.lru_cache(maxsize=256)
+def spline_plan(G: int, n: int, K: int) -> SplinePlan:
+    """track_spline's tiles as its launcher chooses them
+    (kernels/csrc/tracks_plan.h ``spline_plan``)."""
+    out = (ctypes.c_longlong * 3)()
+    if _plans().track_spline_plan(G, n, K, out) != 0:
+        raise ValueError(f"tracks stage: no spline plan for G={G} n={n} "
+                         f"K={K}")
+    return SplinePlan(*out)
+
+
+@functools.lru_cache(maxsize=256)
+def synth_plan(G: int, n: int, K: int, step: int, length: int,
+               itemsize: int) -> SynthPlan:
+    """track_synth's block shape as its launcher chooses it
+    (kernels/csrc/tracks_plan.h ``synth_plan``)."""
+    out = (ctypes.c_longlong * 7)()
+    if _plans().track_synth_plan(G, n, K, step, length, itemsize, out) != 0:
+        raise ValueError(f"tracks stage: no synth plan for G={G} n={n} K={K}"
+                         f" step={step} L={length}")
+    Kl, S, J, threads, kept, smem, blocks = out
+    return SynthPlan(Kl, S, J, threads, bool(kept), smem, blocks)
+
+
+class Tiers(NamedTuple):
+    """The per-tier frame results of one utterance and the frame map that
+    reads them: what ``stage_tiers`` takes in place of a dense grid."""
+    fmap: torch.Tensor    # [n] int32: row * 16 + tier, or -1 (no tier)
+    parts: tuple          # per tier (a0 [Nb], am, fm, ph [Nb, Kb], acc
+                          # [Nb, Kb] bool)
+    K: int                # columns of the grid (the widest tier's Kb)
+
+
+def tier_map(idx_list, n: int, device) -> torch.Tensor:
+    """The frame map [n] int32 of tiers whose frames sit at idx_list (each
+    [Nb]): row * 16 + tier where a tier's result lands, -1 where none does.
+    As the scatter of eaqhm_tpu/models/engine.py ``_combine_buckets``
+    (:424): indices clamped to [0, n], index n a dump row past the grid,
+    later tiers over earlier ones.  Torch ops, once per geometry."""
+    if len(idx_list) > MAX_TIERS:
+        raise ValueError(f"tracks stage: {len(idx_list)} tiers (the kernels "
+                         f"take {MAX_TIERS})")
+    fmap = torch.full((n + 1,), -1, dtype=torch.int32, device=device)
+    for t, idx in enumerate(idx_list):
+        rows = torch.arange(idx.shape[0], dtype=torch.int32, device=device)
+        fmap[idx.clamp(0, n)] = rows * 16 + t
+    return fmap[:n]
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _desc(vals, keep):
+    """The anchors' source as the kernels read it (kSrcHead + kSrcTier long
+    longs a tier, host memory read before the launch): its address."""
+    arr = (ctypes.c_longlong * len(vals))(*vals)
+    keep.append(arr)
+    return ctypes.addressof(arr)
+
+
+def _dense_src(am, fm, ph, acc, a0, voiced, keep):
+    dt = am.dtype
+    ts = [am, fm, ph, _bytes(acc), a0.to(dt).contiguous(), _bytes(voiced)]
+    keep.extend(ts)
+    return _desc([0, 0] + [_ptr(t) for t in ts]
+                 + [am.stride(0), am.stride(1)], keep)
+
+
+def _tier_src(tiers: Tiers, voiced, dt, keep):
+    voiced = _bytes(voiced)
+    fmap = tiers.fmap.contiguous()
+    vals = [fmap.data_ptr(), len(tiers.parts), 0, 0, 0, 0, 0, _ptr(voiced),
+            0, 0]
+    keep.extend([fmap, voiced])
+    for a0, am, fm, ph, acc in tiers.parts:
+        am, fm, ph = _layout(am, fm, ph.to(dt))
+        acc = acc.view(torch.uint8) if acc.dtype == torch.bool else \
+            acc.to(torch.uint8)
+        if acc.stride(-1) != 1:
+            acc = acc.contiguous()
+        a0 = a0.to(dt)
+        keep.extend([am, fm, ph, acc, a0])
+        vals += [am.data_ptr(), fm.data_ptr(), ph.data_ptr(), acc.data_ptr(),
+                 a0.data_ptr(), am.stride(0), acc.stride(0), a0.stride(0),
+                 am.shape[1]]
+    return _desc(vals, keep)
+
+
+def spline_call(src, G, n, K, step, dt, dev):
+    """One track_spline call (two launches) without the launch: (M [n, G*K
+    + G], the symbol, its arguments but the stream, the scratch).  src: the
+    address of the anchors' source (``_dense_src`` / ``_tier_src``)."""
     Ctot = G * K + G
+    tiles = spline_plan(G, n, K).tiles
     M = torch.empty((n, Ctot), dtype=dt, device=dev)
     code = torch.empty((n, Ctot), dtype=torch.uint8, device=dev)
-    keep = [am, fm, _bytes(acc), a0.to(dt).contiguous(), _bytes(voiced),
-            cp_table(dt, dev), M, code]
-    ptr = [0 if t is None else t.data_ptr() for t in keep]
-    args = (*ptr, G, K, n, am.stride(0), am.stride(1), step)
+    agg = torch.empty((5, tiles, Ctot), dtype=dt, device=dev)
+    keep = [cp_table(dt, dev), M, code, agg]
+    args = (src, *[t.data_ptr() for t in keep], tiles, G, K, n, step)
     return M, f"track_spline_{_real(dt)}", args, keep
 
 
-def synth_call(am, fm, ph, acc, a0, voiced, M, step, fs, length, *,
-               dc, anchors, dense, out=None):
+def synth_call(src, G, n, K, dt, dev, M, step, fs, length, *, dc, anchors,
+               dense, out=None):
     """One track_synth launch without the launch: (Stage, the symbol, its
     arguments but the stream, the tensors to keep alive).  out: (am,
     fm_cur) buffers [G, L, K] (contiguous) to write into."""
-    G, n, K = am.shape
-    dt, dev = am.dtype, am.device
     L = int(length)
 
     def new(*shape):
@@ -177,12 +331,10 @@ def synth_call(am, fm, ph, acc, a0, voiced, M, step, fs, length, *,
                s=new(G, L), a0=new(G, L) if dc == "apart" else None,
                fm=new(G, L, K) if dense else None,
                ph=new(G, L, K) if dense else None)
-    ins = [am, fm, ph, _bytes(acc), a0.to(dt).contiguous(), _bytes(voiced),
-           M, sine_bump(step, dt, dev)]
+    ins = [M, sine_bump(step, dt, dev)]
     outs = [st.am, st.fm_cur, st.fm, st.ph, st.anchors, st.a0_anchor, st.s,
             st.a0]
-    ptr = [0 if t is None else t.data_ptr() for t in ins + outs]
-    args = (*ptr, G, K, n, step, L, am.stride(0), am.stride(1),
+    args = (src, *[_ptr(t) for t in ins + outs], G, K, n, step, L,
             int(dc == "sum"), float(fs))
     return st, f"track_synth_{_real(dt)}", args, ins + outs
 
@@ -201,12 +353,51 @@ def srer_call(det, s, lens, std_det, n_valid):
     return srer, f"track_srer_{_real(dt)}", args, keep
 
 
-def library():
-    return build.load("tracks")
+def library(device=None):
+    """The kernel library; with a CUDA device, track_synth's dynamic
+    shared-memory limit is set on that device first (once per device,
+    outside any capture)."""
+    lib = build.load("tracks")
+    if device is None:
+        return lib
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _prepared:
+        with _lock, torch.cuda.device(idx):
+            err = lib.track_prepare()
+            if err != 0:
+                raise RuntimeError(f"tracks: setting track_synth's shared "
+                                   f"memory on cuda:{idx} failed: cudaError "
+                                   f"{err}")
+            _prepared.add(idx)
+    return lib
+
+
+# kinds and phases of the clocked build (-DTRACKS_PHASE_CLOCKS), by slot
+CLOCK_KINDS = ("spline_tiles_f32", "spline_tiles_f64", "spline_apply_f32",
+               "spline_apply_f64", "synth_f32", "synth_f64")
+CLOCK_PHASES = {"spline_tiles": ("look_back", "walk"),
+                "spline_apply": ("folds", "entering_dp", "backward"),
+                "synth": ("flags", "state", "pass_1", "pass_2", "row_sums")}
+
+
+def occupancy(name, G, n, K, step, length, dtype) -> dict:
+    """Blocks a SM holds at the launch of this shape (the CUDA runtime's
+    count): ``track_spline`` {spline_tiles, spline_apply}, ``track_synth``
+    {track_synth}."""
+    f64 = int(dtype == torch.float64)
+    lib = library(torch.cuda.current_device())
+    if name == "track_spline":
+        threads = spline_plan(G, n, K).threads
+        return {k: lib.track_occupancy(base + f64, threads, 0)
+                for k, base in (("spline_tiles", 0), ("spline_apply", 2))}
+    plan = synth_plan(G, n, K, step, length, 8 if f64 else 4)
+    return {"track_synth": lib.track_occupancy(
+        (4 if plan.kept else 6) + f64, plan.threads, plan.smem)}
 
 
 def _launch(counter, sym: str, dev: torch.device, *args) -> None:
-    lib = library()
+    lib = library(dev)
     with torch.cuda.device(dev):
         err = getattr(lib, sym)(*args,
                                 torch.cuda.current_stream(dev).cuda_stream)
@@ -222,16 +413,34 @@ def _need_cuda(x):
                          f"plain version on the CPU)")
 
 
+def _spline(src, G, n, K, step, dt, dev):
+    M, sym, args, _keep = spline_call(src, G, n, K, step, dt, dev)
+    _launch(track_spline, sym, dev, *args)
+    _record(track_spline, (G, n, K, step, str(dt)[6:]))
+    return M
+
+
+def _synth(src, G, n, K, dt, dev, M, step, fs, length, *, dc, anchors,
+           dense, out, masks):
+    st, sym, args, _keep = synth_call(src, G, n, K, dt, dev, M, step, fs,
+                                      length, dc=dc, anchors=anchors,
+                                      dense=dense, out=out)
+    _launch(track_synth, sym, dev, *args)
+    _record(track_synth, (G, n, K, int(length), step, float(fs),
+                          (dc, bool(anchors), bool(dense)) + masks,
+                          str(dt)[6:]))
+    return st
+
+
 def track_spline(am, fm, acc, a0, voiced, step: int):
     """The not-a-knot second derivatives M [n, G*K + G] of every run of
     every harmonic column (g*K + k) and of every DC column (G*K + g).
-    Launches the kernel (CUDA tensors only)."""
+    Launches the kernels (CUDA tensors only)."""
     _need_cuda(am)
-    M, sym, args, _keep = spline_call(am, fm, acc, a0, voiced, step)
-    _launch(track_spline, sym, am.device, *args)
+    keep = []
+    src = _dense_src(am, fm, am, acc, a0, voiced, keep)
     G, n, K = am.shape
-    _record(track_spline, (G, n, K, step, str(am.dtype)[6:]))
-    return M
+    return _spline(src, G, n, K, int(step), am.dtype, am.device)
 
 
 def track_synth(am, fm, ph, acc, a0, voiced, M, step: int, fs: float,
@@ -240,16 +449,12 @@ def track_synth(am, fm, ph, acc, a0, voiced, M, step: int, fs: float,
     """Every row of every column from the anchors and M (``stage``).
     Launches the kernel (CUDA tensors only)."""
     _need_cuda(am)
-    st, sym, args, _keep = synth_call(am, fm, ph, acc, a0, voiced, M, step,
-                                      fs, length, dc=dc, anchors=anchors,
-                                      dense=dense, out=out)
-    _launch(track_synth, sym, am.device, *args)
+    keep = []
+    src = _dense_src(am, fm, ph, acc, a0, voiced, keep)
     G, n, K = am.shape
-    mode = (dc, bool(anchors), bool(dense), acc is not None,
-            voiced is not None)
-    _record(track_synth, (G, n, K, int(length), step, float(fs), mode,
-                          str(am.dtype)[6:]))
-    return st
+    return _synth(src, G, n, K, am.dtype, am.device, M, int(step), fs,
+                  length, dc=dc, anchors=anchors, dense=dense, out=out,
+                  masks=(acc is not None, voiced is not None))
 
 
 def track_srer(det, s, lens=None, std_det=None, n_valid=None):
@@ -261,6 +466,15 @@ def track_srer(det, s, lens=None, std_det=None, n_valid=None):
     _record(track_srer, (s.shape[0], s.shape[1], lens is not None,
                          str(s.dtype)[6:]))
     return srer
+
+
+def _with_out(st, out):
+    """A plain version's Stage written into the out buffers (am, fm_cur)."""
+    if out is None:
+        return st
+    out[0].copy_(st.am)
+    out[1].copy_(st.fm_cur)
+    return st._replace(am=out[0], fm_cur=out[1])
 
 
 def stage(am, fm, ph, a0, step: int, fs: float, length: int, *, acc=None,
@@ -284,18 +498,57 @@ def stage(am, fm, ph, a0, step: int, fs: float, length: int, *, acc=None,
     _check(am, fm, ph, a0, acc, voiced, step, length)
     if am.device.type == "cpu":
         _count_plain(stage)
-        st = stage_reference(am, fm, ph, a0, step, fs, length, acc=acc,
-                             voiced=voiced, dc=dc, anchors=anchors,
-                             dense=dense)
-        if out is None:
-            return st
-        out[0].copy_(st.am)
-        out[1].copy_(st.fm_cur)
-        return st._replace(am=out[0], fm_cur=out[1])
+        return _with_out(stage_reference(
+            am, fm, ph, a0, step, fs, length, acc=acc, voiced=voiced, dc=dc,
+            anchors=anchors, dense=dense), out)
     am, fm, ph = _layout(am, fm, ph.to(am.dtype))
-    M = track_spline(am, fm, acc, a0, voiced, step)
-    return track_synth(am, fm, ph, acc, a0, voiced, M, step, fs, length,
-                       dc=dc, anchors=anchors, dense=dense, out=out)
+    G, n, K = am.shape
+    keep = []
+    src = _dense_src(am, fm, ph, acc, a0, voiced, keep)
+    M = _spline(src, G, n, K, step, am.dtype, am.device)
+    return _synth(src, G, n, K, am.dtype, am.device, M, step, fs, length,
+                  dc=dc, anchors=anchors, dense=dense, out=out,
+                  masks=(acc is not None, voiced is not None))
+
+
+def stage_tiers(tiers: Tiers, step: int, fs: float, length: int, *,
+                voiced=None, dc="sum", anchors=True, dense=False,
+                out=None) -> Stage:
+    """``stage`` of one group whose anchors are per-tier frame results read
+    through a frame map (``Tiers``, ``tier_map``): the grid [1, n, K] holds
+    tier t's row r at every frame the map gives (t, r), its columns past
+    the tier's Kb and the frames in no tier zero.  voiced: [1, n] or None.
+    On CUDA the kernels read the tiers themselves (no grid is built); on
+    the CPU the plain version gathers the grid
+    (``gather_tiers_reference``), then ``stage_reference``."""
+    if dc not in ("sum", "apart"):
+        raise ValueError(f"tracks stage: dc {dc!r} not in ('sum', 'apart')")
+    if not tiers.parts or len(tiers.parts) > MAX_TIERS:
+        raise ValueError(f"tracks stage: {len(tiers.parts)} tiers (1 to "
+                         f"{MAX_TIERS})")
+    dt = tiers.parts[0][1].dtype
+    _real(dt)
+    step, length = int(step), int(length)
+    n, K = tiers.fmap.shape[0], int(tiers.K)
+    _check_tiers(tiers, voiced, dt)
+    if n < 2 or step < 1 or step + 1 > 700 or (
+            K > 0 and length < (n - 1) * step + 1):
+        raise ValueError(f"tracks stage: {n} anchors, step {step}, length "
+                         f"{length}")
+    if tiers.fmap.device.type == "cpu":
+        _count_plain(stage_tiers)
+        a0, am, fm, ph, acc = gather_tiers_reference(tiers)
+        return _with_out(stage_reference(
+            am[None], fm[None], ph[None], a0[None], step, fs, length,
+            acc=acc[None], voiced=voiced, dc=dc, anchors=anchors,
+            dense=dense), out)
+    dev = tiers.fmap.device
+    keep = []
+    src = _tier_src(tiers, voiced, dt, keep)
+    M = _spline(src, 1, n, K, step, dt, dev)
+    return _synth(src, 1, n, K, dt, dev, M, step, fs, length, dc=dc,
+                  anchors=anchors, dense=dense, out=out,
+                  masks=(True, voiced is not None))
 
 
 def masked_srer(det, s, *, std_det=None, n_valid=None, lens=None):
@@ -385,6 +638,31 @@ def spline_reference(am, fm, a0, step: int, *, acc=None, voiced=None):
     return torch.cat([spline_M_reference(*cols, float(step)), M_dc], dim=1)
 
 
+def gather_tiers_reference(tiers: Tiers):
+    """The plain version of the kernels' read through the frame map: the
+    dense grid (a0 [n], am, fm, ph [n, K], acc [n, K] bool) gathered from
+    the tiers, frame by frame, with torch ops."""
+    fmap = tiers.fmap.long()
+    n, K = fmap.shape[0], int(tiers.K)
+    dt = tiers.parts[0][1].dtype
+    dev = fmap.device
+    a0 = torch.zeros(n, dtype=dt, device=dev)
+    am, fm, ph = (torch.zeros((n, K), dtype=dt, device=dev)
+                  for _ in range(3))
+    acc = torch.zeros((n, K), dtype=torch.bool, device=dev)
+    tier, row = fmap & 15, fmap >> 4
+    for t, (a0_t, am_t, fm_t, ph_t, acc_t) in enumerate(tiers.parts):
+        sel = (fmap >= 0) & (tier == t)
+        r = row[sel]
+        Kb = am_t.shape[1]
+        a0[sel] = a0_t.to(dt)[r]
+        am[sel, :Kb] = am_t[r]
+        fm[sel, :Kb] = fm_t[r]
+        ph[sel, :Kb] = ph_t.to(dt)[r]
+        acc[sel, :Kb] = acc_t[r]
+    return a0, am, fm, ph, acc
+
+
 def masked_srer_reference(det, s, *, std_det=None, n_valid=None, lens=None):
     """The plain version of ``masked_srer``: one utterance as
     eaqhm_tpu/models/engine.py ``_masked_srer`` (:451) writes it, groups as
@@ -413,7 +691,7 @@ def masked_srer_reference(det, s, *, std_det=None, n_valid=None, lens=None):
 # ---------------------------------------------------------------------------
 
 KERNELS = (track_spline, track_synth, track_srer)
-ENTRIES = (stage, masked_srer)
+ENTRIES = (stage, stage_tiers, masked_srer)
 _KEY = {track_spline: "spline", track_synth: "synth", track_srer: "srer"}
 
 

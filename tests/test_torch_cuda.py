@@ -494,3 +494,169 @@ def test_cuda_public_track_functions_match_plain_version(dtype):
             assert g.shape == w.shape
             assert (g - w).abs().max() <= tol * w.abs().max()
     assert tracks.track_synth.launches == 6 and tracks.plain_calls() == 0
+
+
+def _boundary_case(dtype):
+    """One group of 9 columns over 200 anchors whose runs meet track_spline's
+    tile boundaries (32 anchors a tile at this size, spline_plan): column 0
+    has no run; columns 1-3 runs of 2, 3 and 4 across a boundary; column 4 a
+    run of 60 across two; column 5 one of 49 from a boundary; column 6 a
+    start at a tile's last anchor and ends at a tile's first and second;
+    column 7 runs everywhere; column 8 every anchor."""
+    rng = np.random.default_rng(17)
+    n, K, step = 200, 9, 15
+    acc = np.zeros((1, n, K), bool)
+    for k, (a, b) in ((1, (31, 33)), (2, (63, 66)), (3, (94, 98)),
+                      (4, (20, 80)), (5, (96, 145)), (6, (95, 101)),
+                      (6, (120, 129)), (6, (150, 161)), (8, (0, n))):
+        acc[0, a:b, k] = True
+    acc[0, :, 7] = rng.uniform(size=n) < 0.9
+    fm = 150.0 * np.arange(1, K + 1) * (1 + 0.02 * rng.normal(size=(1, n, K)))
+    am = rng.uniform(0.01, 0.3, size=(1, n, K))
+    ph = rng.uniform(-np.pi, np.pi, size=(1, n, K))
+    t = {k: torch.as_tensor(v, device="cuda", dtype=dtype)
+         for k, v in (("am", am), ("fm", fm), ("ph", ph),
+                      ("a0", rng.normal(scale=0.05, size=(1, n))))}
+    t["acc"] = torch.as_tensor(acc, device="cuda")
+    return t, step, 16000.0, (n - 1) * step + 21
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_spline_tile_boundaries(dtype):
+    """track_spline where tile boundaries fall inside runs of 2, 3, 4, 49
+    and more anchors, at a run's start and end, a column with no run:
+    M against the plain spline, the stage against the plain stage, two
+    launches bitwise equal."""
+    _needs_cuda()
+    from eaqhm_torch.ops import tracks
+    from torch_track_cases import stage_errors
+    t, step, fs, L = _boundary_case(dtype)
+    assert tracks.spline_plan(1, 200, 9)[0] == 32
+    args = (t["am"], t["fm"], t["acc"], t["a0"], None, step)
+    M = tracks.track_spline(*args)
+    again = tracks.track_spline(*args)
+    ref = tracks.spline_reference(t["am"], t["fm"], t["a0"], step,
+                                  acc=t["acc"])
+    torch.cuda.synchronize()
+    assert torch.equal(M, again)
+    assert (M - ref).abs().max() <= TRACK_TOL[dtype] * ref.abs().max()
+    sargs = (t["am"], t["fm"], t["ph"], t["a0"], step, fs, L)
+    got = tracks.stage(*sargs, acc=t["acc"])
+    want = tracks.stage_reference(*sargs, acc=t["acc"])
+    errs, flips, _ = stage_errors(got, want, step, 200, flip_hz=1e-3 * fs)
+    assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_tracks_every_mode(dtype):
+    """Every dc / anchors / dense mode of the stage against the plain
+    version, with and without the masks; two launches bitwise equal."""
+    _needs_cuda()
+    import itertools
+    from eaqhm_torch.ops import tracks
+    from torch_track_cases import stage_errors
+    c, t = _track_case(8, dtype, G=2, n=70, K=11)
+    step, fs, L = c["step"], c["fs"], c["L"]
+    args = (t["am"], t["fm"], t["ph"], t["a0"], step, fs, L)
+    for dc, anchors, dense, masks in itertools.product(
+            ("sum", "apart"), (True, False), (True, False), (True, False)):
+        kw = dict(acc=t["acc"], voiced=t["voiced"]) if masks else {}
+        mode = dict(dc=dc, anchors=anchors, dense=dense)
+        got = tracks.stage(*args, **kw, **mode)
+        again = tracks.stage(*args, **kw, **mode)
+        want = tracks.stage_reference(*args, **kw, **mode)
+        torch.cuda.synchronize()
+        for a, b, w in zip(got, again, want):
+            assert (a is None) == (w is None) and (
+                a is None or torch.equal(a, b))
+        errs, flips, _ = stage_errors(got, want, step, 70, flip_hz=1e-3 * fs)
+        assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], (
+            mode, masks, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_stage_tiers_matches_dense_form(dtype):
+    """stage_tiers (the kernels reading three tiers of Kb = 3, 5 and 7
+    through the frame map: a frame in no tier, an index past the grid)
+    against the dense kernels on the grid the plain version gathers (bit
+    for bit: the same arithmetic in the same order) and against the plain
+    version; two launches bitwise equal; one launch of each kernel a
+    stage, none of the plain version."""
+    _needs_cuda()
+    from eaqhm_torch.ops import tracks
+    from torch_track_cases import anchor_case, stage_errors
+    c = anchor_case(21, n=60, K=7)
+    rng = np.random.default_rng(21)
+    n, step, fs, L = 60, c["step"], c["fs"], c["L"]
+    frames = rng.permutation(n)
+    idx = [np.sort(frames[1:21]), np.sort(frames[21:40]),
+           np.append(np.sort(frames[40:]), n)]
+    parts = []
+    for kb, ix in zip((3, 5, 7), idx):
+        rows = np.minimum(ix, n - 1)
+        part = [c["a0"][0, rows]] + [c[k][0, rows, :kb]
+                                     for k in ("am", "fm", "ph", "acc")]
+        parts.append(tuple(torch.as_tensor(
+            x, device="cuda", dtype=None if x.dtype == bool else dtype)
+            for x in part))
+    fmap = tracks.tier_map([torch.as_tensor(ix, device="cuda")
+                            for ix in idx], n, "cuda")
+    voiced = (fmap >= 0)[None]
+    tiers = tracks.Tiers(fmap, tuple(parts), 7)
+    tracks.reset_counts()
+    got = tracks.stage_tiers(tiers, step, fs, L, voiced=voiced)
+    again = tracks.stage_tiers(tiers, step, fs, L, voiced=voiced)
+    assert tracks.track_spline.launches == tracks.track_synth.launches == 2
+    assert tracks.plain_calls() == 0
+    a0, am, fm, ph, acc = tracks.gather_tiers_reference(tiers)
+    dense = tracks.stage(am[None], fm[None], ph[None], a0[None], step, fs, L,
+                         acc=acc[None], voiced=voiced)
+    want = tracks.stage_reference(am[None], fm[None], ph[None], a0[None],
+                                  step, fs, L, acc=acc[None], voiced=voiced)
+    torch.cuda.synchronize()
+    for a, b, d in zip(got, again, dense):
+        assert a is None or (torch.equal(a, b) and torch.equal(a, d))
+    errs, flips, _ = stage_errors(got, want, step, n, flip_hz=1e-3 * fs)
+    assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_synth_blocks_of_several_slices(dtype):
+    """track_synth where a block takes several slices of segments in turn
+    (synth_plan's J > 1, as at the batch engine's and the stress shapes):
+    the batch engine's form (8 utterances of 59 columns, the DC apart, no
+    masks: 236 threads of segments, 20 more to whole warps)
+    and the sequential engine's (one utterance, the masks), against the
+    plain version; two launches bitwise equal."""
+    _needs_cuda()
+    from eaqhm_torch.ops import tracks
+    from torch_track_cases import stage_errors
+    for kw, mode, masks in ((dict(G=8, n=2134, K=59), dict(dc="apart"),
+                             False),
+                            (dict(G=1, n=2400, K=40), dict(dc="sum"), True)):
+        c, t = _track_case(9, dtype, **kw)
+        step, fs, L, n = c["step"], c["fs"], c["L"], kw["n"]
+        plan = tracks.synth_plan(kw["G"], n, kw["K"], step, L,
+                                 t["am"].element_size())
+        assert plan.J > 1, plan
+        if masks:
+            args = (t["am"], t["fm"], t["ph"], t["a0"])
+            extra = dict(acc=t["acc"], voiced=t["voiced"])
+        else:
+            args = tuple(torch.where(t["acc"], t[k], 0)
+                         for k in ("am", "fm", "ph")) + (
+                torch.where(t["voiced"], t["a0"], 0),)
+            extra = {}
+        got = tracks.stage(*args, step, fs, L, **extra, **mode)
+        again = tracks.stage(*args, step, fs, L, **extra, **mode)
+        want = tracks.stage_reference(*args, step, fs, L, **extra, **mode)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert a is None or torch.equal(a, b)
+        errs, flips, _ = stage_errors(got, want, step, n, flip_hz=1e-3 * fs)
+        assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], (
+            kw, errs)

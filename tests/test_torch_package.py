@@ -80,8 +80,16 @@ _IMPORT = re.compile(
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
-    paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tests", "torch_track_cases.py")]
+    """The port's package, chip_smoke.py, the tools that run the port on
+    the card and the helpers of its GPU tests."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += [os.path.join(ROOT, "tests", f) for f in (
+        "torch_track_cases.py", "torch_spline_tiles.py", "test_torch_cuda.py")]
+    paths += [os.path.join(ROOT, "tools", f) for f in (
+        "bench_tracks_phases.py", "bench_fit_phases.py",
+        "bench_chol_phases.py", "bench_block_inverse_phases.py",
+        "profile_torch_adapt.py", "torch_chol_route.py",
+        "torch_solver_residuals.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "eaqhm_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10

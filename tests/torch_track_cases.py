@@ -88,7 +88,8 @@ def stage_errors(got, want, step, n, flip_hz=None):
         if keep is not None:
             d = torch.where(keep, d, torch.zeros_like(d))
         largest[0] = max(largest[0], float(d.max()))
-        errs[name] = float(d.max() / w.abs().max().clamp(min=1e-300))
+        errs[name] = float(d.max().double()
+                           / w.abs().max().double().clamp(min=1e-300))
     rel("am", got.am, want.am)
     rel("fm_cur", got.fm_cur, want.fm_cur, keep_rows)
     rel("s", got.s, want.s, keep_rows.all(dim=2))

@@ -61,7 +61,6 @@ import ctypes
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -365,31 +364,7 @@ def clocked_run(clocked, fns):
 def ptxas_report(defines=()):
     """Per kernel of the fit library: registers, spill bytes, shared memory,
     as -Xptxas -v printed them at the build."""
-    flags = tuple(build.NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
-    path = build._lib_path("fit", flags) + ".ptxas.txt"
-    out, name = {}, None
-    with open(path) as f:
-        for line in f:
-            m = re.search(r"(?:Compiling entry function|Function properties "
-                          r"for) '?([\w$]+)'?", line)
-            if m:
-                name = m.group(1)
-                continue
-            if name is None:
-                continue
-            row = out.setdefault(name, {})
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                row["spill_stores"], row["spill_loads"] = map(int,
-                                                              m.groups())
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                row["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            if m:
-                row["static_smem"] = int(m.group(1))
-    return {k: v for k, v in out.items() if "registers" in v}
+    return build.ptxas_report("fit", defines)
 
 
 def probe_mma(iters=4096):
