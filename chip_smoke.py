@@ -84,10 +84,10 @@
    float64's final SRERs.
 12. Wide tiers (sample rates and pitch floors whose top tier passes Kc =
    128): the kernel at (B, M) = (64, 770), (32, 1026), (16, 1294), (8,
-   1950), (2, 6146) and (2, the smallest slab order) against its plain
-   versions in both rules (errors to 2e-5 / 1e-12), beside cuSOLVER and the
-   bound; the M = 194-514 cells timed on the global and the cluster path
-   beside the route's choice; the "nan" rule on the cluster and slab paths.
+   1950), (2, 6146) and (2, 6657) against its plain versions in both rules
+   (errors to 2e-5 / 1e-12), the kept factor's substitution too, beside
+   cuSOLVER and the bound; the M = 194-514 cells timed on every path that
+   fits them beside the route's choice; the "nan" rule on the tiled path.
    Then analyze on tones built as config 4's signal at other rates: 22.05
    kHz male, 0.5 s (M = 770), float64 host loop and fused loop held to the
    JAX fixture (wide/fs22050) as in 3, float32 default under the gate
@@ -387,7 +387,7 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel",
             bnd, by = bound_ms(*factor_cost(B, M, R.element_size(), False),
                                cname)
             log(f"{what} chol_solve {cname} B={B} M={M} path={path} "
-                f"cluster={chol.cluster_size(dt, M, path)}: "
+                f"({chol.launches_per_call(M, path, B)} launches): "
                 f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bnd:.4f} ({by}) max_rel_err (solve, subst) "
                 f"guard={errs['guard'][0]:.3e},{errs['guard'][1]:.3e} "
@@ -491,8 +491,10 @@ def non_pd_ridge_phase(torch, chol, solver):
 def kernel_line_entry(torch, chol, dt, fused, subst):
     """The kernel and its plain version at every launch the main path made
     (fused: (B, M, path, mode, keep) per factor + solve launch; subst:
-    (B, M, path) per substitution): error asserted, times and bound summed
-    over all launches.  library_ms is the cuSOLVER route for the same work:
+    (B, M, path) per substitution): error asserted, each factor + solve
+    shape's device launches counted from its captured call's graph nodes
+    (and held to the wrapper's plan), times, launches and bound summed over
+    all calls.  library_ms is the cuSOLVER route for the same work:
     a Cholesky plus two triangular solves per factor + solve, two
     triangular solves per substitution."""
     cname = str(dt).split(".")[-1]
@@ -523,12 +525,20 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
         R, b = pools[(M, seed)]
         return R[:B].contiguous(), b[:B].contiguous()
 
+    per_call = {}
+    device_launches = len(subst)
     for (B, M, path, mode, keep), n in sorted(Counter(fused).items()):
         R, b = systems(B, M, 1000, fused)
         x = chol.chol_solve(R, b, mode=mode, keep_factor=keep)
         x = x[0] if keep else x
         check(f"chol_solve {cname} B={B} M={M} {path} {mode} keep={keep}",
               x, chol.chol_solve_reference(R, b, mode=mode), n)
+        # device launches of this shape's call, counted on the card
+        got = graph_launches(torch, lambda: chol.chol_solve(
+            R, b, mode=mode, keep_factor=keep))
+        assert got == chol.launches_per_call(M, path, B), (B, M, path, got)
+        per_call.setdefault(f"{M} {path}", set()).add(got)
+        device_launches += n * got
         k_ms["chol_factor_solve"] += n * cuda_ms(
             lambda: chol.chol_solve(R, b, mode=mode, keep_factor=keep), 3)
         p_ms += n * cuda_ms(
@@ -560,6 +570,9 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
             "launches": len(fused) + len(subst),
             "launches_by_entry": {"chol_factor_solve": len(fused),
                                   "chol_subst": len(subst)},
+            "device_launches": device_launches,
+            "device_launches_per_call": {k: sorted(v) for k, v
+                                         in per_call.items()},
             "factorizations": len(fused),
             "paths": dict(Counter(s[2] for s in fused)),
             "max_abs_err": err, "ms": sum(k_ms.values()), "plain_ms": p_ms,
@@ -910,7 +923,7 @@ def graph_launches(torch, fn):
     fails."""
     import ctypes
 
-    from eaqhm_torch.ops import block_inverse, tracks
+    from eaqhm_torch.ops import block_inverse, chol, tracks
     cu = ctypes.CDLL("libcuda.so.1")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -922,6 +935,7 @@ def graph_launches(torch, fn):
         fn()
     block_inverse.take_captured()         # launches of a capture, not a run
     tracks.take_captured()
+    chol.take_captured()
     h = ctypes.c_void_p(g.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     assert cu.cuGraphGetNodes(h, None, ctypes.byref(n)) == 0
@@ -1588,7 +1602,8 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     return {"float64_batch64": sh}
 
 
-WIDE_KERNEL_CELLS = ((64, 770), (32, 1026), (16, 1294), (8, 1950), (2, 6146))
+WIDE_KERNEL_CELLS = ((64, 770), (32, 1026), (16, 1294), (8, 1950), (2, 6146),
+                     (2, 6657))
 # PERF.md's per-M batches, timed on every path that fits them
 ROUTE_CELLS = {"complex64": ((512, 194), (512, 258), (512, 386), (256, 514)),
                "complex128": ((512, 194), (512, 258), (256, 386),
@@ -1600,47 +1615,35 @@ WIDE_RUNS = (("fs22050", 80.0, "male", 0.5, None, None),
              ("fs48000", 55.0, (50.0, 180.0), 0.15, 2, "pallas"))
 
 
-def slab_order(chol, dt):
-    """The smallest order the kernel serves on its slab path."""
-    lo, hi = 1, 1 << 16
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if chol.path_for(dt, mid) == "slab":
-            hi = mid
-        else:
-            lo = mid + 1
-    return lo
-
-
 def route_phase(torch, chol):
-    """The M = 194-514 cells on every path that fits them (the one-block
-    global path, and the cluster path at the size the kernel routes
-    cluster orders to), beside the path the kernel takes: the timings the
-    routing table in chol_solve.cu came from, printed, not gated."""
+    """The M = 194-514 cells on every path that takes them (the resident
+    path where the kernel routes M to it, the tiled path everywhere; a
+    launch that fails fails the phase), beside the path the kernel takes:
+    the kind of timings path_of in chol_solve.cu came from, printed, not
+    gated."""
     for dt in (torch.complex64, torch.complex128):
         cname = str(dt).split(".")[-1]
         for B, M in ROUTE_CELLS[cname]:
             R, b = hpd_batch(B, M, seed=M, dtype=dt, device="cuda")
             xr = chol.chol_solve_reference(R, b)
             ms = {}
-            for path in ("global", "cluster"):
+            routed = chol.path_for(dt, M)
+            # the tiled path takes every order, the resident one its own
+            for path in chol.PATHS if routed == "resident" else ("tiled",):
                 x = chol.chol_solve(R, b, path=path)
                 assert rel_err(x, xr) <= KERNEL_TOL[cname], (cname, M, path)
-                ms[path] = cuda_ms(lambda: chol.chol_solve(R, b, path=path),
-                                   5)
-            log(f"route {cname} B={B} M={M}: routed to "
-                f"{chol.path_for(dt, M)}; ms global={ms['global']:.4f} "
-                f"cluster(C={chol.cluster_size(dt, M, 'cluster')})="
-                f"{ms['cluster']:.4f}")
+                ms[path] = round(cuda_ms(
+                    lambda: chol.chol_solve(R, b, path=path), 5), 4)
+            log(f"route {cname} B={B} M={M}: routed to {routed}; ms {ms}")
 
 
-def wide_nan_phase(torch, chol, m_slab):
-    """The "nan" rule on the cluster and slab paths: a negative diagonal
-    entry fails a factorization in the second row block (rank 1 of a
-    cluster) of system 1 and in the last row block of system 3; NaN on
-    exactly the systems cuSOLVER fails on, finite elsewhere."""
+def wide_nan_phase(torch, chol):
+    """The "nan" rule at the wide orders: a negative diagonal entry fails a
+    factorization in the first panel of system 1 and in the last panel of
+    system 3; NaN on exactly the systems cuSOLVER fails on, finite
+    elsewhere."""
     for dt in (torch.complex64, torch.complex128):
-        for B, M in ((4, 770), (4, 1950), (4, m_slab)):
+        for B, M in ((4, 770), (4, 1950), (4, 6657)):
             R, b = hpd_batch(B, M, seed=M + 1, dtype=dt, device="cuda")
             R[1, 17, 17] = -1.0
             R[3, M - 5, M - 5] = -1.0
@@ -1657,9 +1660,9 @@ def wide_nan_phase(torch, chol, m_slab):
 
 
 def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
-    """The widest tiers.  Kernel cells at M = 770-6146 and at the smallest
-    slab order (both rules against the plain versions, errors to 2e-5 /
-    1e-12 relative, times beside cuSOLVER and the bound), the route's
+    """The widest tiers.  Kernel cells at M = 770-6657 (both rules against
+    the plain versions, errors to 2e-5 / 1e-12 relative, times beside
+    cuSOLVER and the bound), the route's
     timings at M = 194-514, the "nan" rule on the wide paths.  Then
     analyze on 0.5 s tones (benchmarks.stress_signal at another rate and
     f0): 22.05 kHz male (M = 770), float64 host loop and fused loop held to
@@ -1668,12 +1671,10 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
     (M = 1950, 0.15 s, max_adaptations=2; float32 "pallas"), float64 and
     float32 with float32 under the gate, peak device memory printed.
     Returns {path: launch shapes}."""
-    m_slab = slab_order(chol, torch.complex128)
-    kernel_phase(torch, chol, cells=WIDE_KERNEL_CELLS + ((2, m_slab),),
-                 what="wide kernel",
+    kernel_phase(torch, chol, cells=WIDE_KERNEL_CELLS, what="wide kernel",
                  tols={"complex64": 2e-5, "complex128": 1e-12}, reps=2)
     route_phase(torch, chol)
-    wide_nan_phase(torch, chol, m_slab)
+    wide_nan_phase(torch, chol)
     shapes = {}
     for name, f0, gender, seconds, max_ad, solve32 in WIDE_RUNS:
         fs = int(name[2:])
@@ -1979,6 +1980,19 @@ def tracks_inputs(torch, key, seed, p_acc=0.8):
     return t, args, kw, mode
 
 
+def srer_inputs(torch, t, got, dc):
+    """The SRER call after one tracks launch, as the engines make it: one
+    utterance (std_det, n_valid) after the sequential engine's stage
+    (dc "sum"), the groups (lens) after the batch engine's.  Returns (det,
+    s, keyword arguments of masked_srer)."""
+    if dc == "sum":
+        det, s_rec = t["det"][0], got.s[0]
+        nv = int(t["lens"][0])
+        return det, s_rec, dict(std_det=torch.std(det[:nv], correction=0),
+                                n_valid=nv)
+    return t["det"], got.s + got.a0, dict(lens=t["lens"])
+
+
 def tracks_costs(key, isz):
     """(bytes, operations) of track_spline, track_synth and track_srer at
     one launch: the anchors (and masks) read once and each output written
@@ -2108,14 +2122,7 @@ def tracks_phase(torch, tracks):
             tiers_launches = graph_launches(torch, lambda: tracks.stage_tiers(
                 tiers, step, fs, L, voiced=voiced, **mode))
             assert tiers_launches == 3, (key, tiers_launches)
-        if mode["dc"] == "sum":
-            det, s_rec = t["det"][0], got.s[0]
-            nv = int(t["lens"][0])
-            std = torch.std(det[:nv], correction=0)
-            skw = dict(std_det=std, n_valid=nv)
-        else:
-            det, s_rec = t["det"], got.s + got.a0
-            skw = dict(lens=t["lens"])
+        det, s_rec, skw = srer_inputs(torch, t, got, mode["dc"])
         srer = tracks.masked_srer(det, s_rec, **skw)
         srer_ref = tracks.masked_srer_reference(det, s_rec, **skw)
         d_srer = (srer - srer_ref).abs().max().item()
@@ -2140,8 +2147,9 @@ def tracks_phase(torch, tracks):
                 **mode)),
             "srer": graph_launches(torch, lambda: tracks.masked_srer(
                 det, s_rec, **skw))}
-        assert per_call == {"spline": 2, "synth": 1, "srer": 1}, (key,
-                                                                 per_call)
+        assert per_call == {"spline": 2, "synth": 1,
+                            "srer": tracks.srer_plan(
+                                s_rec.shape[-1]).launches}, (key, per_call)
         for k, v in per_call.items():
             launches_per_call[k].add(v)
         pms = {"spline": cuda_ms(lambda: tracks.spline_reference(

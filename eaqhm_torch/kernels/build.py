@@ -32,13 +32,12 @@ _D = ctypes.c_double
 KERNELS = {
     "chol_solve": ("chol_solve.cu", {
         "chol_path": [_I, _I],
-        "chol_cluster_size": [_I, _I, _I],
+        "chol_tiled_plan": [_I, _I, _P],
         "chol_prepare": [],
         "chol_phase_clocks": [_P],
-        "chol_factor_solve_c64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _P],
-        "chol_factor_solve_c128": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _P],
+        "chol_tiled_clocks": [_P],
+        "chol_factor_solve_c64": [_P] * 6 + [_I, _I, _I, _I, _P],
+        "chol_factor_solve_c128": [_P] * 6 + [_I, _I, _I, _I, _P],
         "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
         "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
     }),
@@ -73,8 +72,8 @@ KERNELS = {
         "track_spline_f64": [_P] * 5 + [_I] * 5 + [_P],
         "track_synth_f32": [_P] * 11 + [_I, _I, _I, _I, _L, _I, _D, _P],
         "track_synth_f64": [_P] * 11 + [_I, _I, _I, _I, _L, _I, _D, _P],
-        "track_srer_f32": [_P] * 5 + [_I, _L, _L, _L, _P],
-        "track_srer_f64": [_P] * 5 + [_I, _L, _L, _L, _P],
+        "track_srer_f32": [_P] * 7 + [_I, _I, _L, _L, _L, _P],
+        "track_srer_f64": [_P] * 7 + [_I, _I, _L, _L, _L, _P],
         "track_prepare": [],
         "track_occupancy": [_I, _I, _I],
         "track_phase_clocks": [_P],
@@ -88,9 +87,13 @@ KERNELS = {
 # host library name -> (header under csrc/, {symbol: argtypes}): built by
 # the host's C++ compiler
 HOST = {
+    "chol_plan": ("chol_plan.h", {
+        "chol_tiled_plan": [_I, _I, _P],
+    }),
     "tracks_plan": ("tracks_plan.h", {
         "track_spline_plan": [_I, _I, _I, _P],
         "track_synth_plan": [_I, _I, _I, _I, _L, _I, _P],
+        "track_srer_plan": [_L, _P],
     }),
 }
 CXX_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC"]

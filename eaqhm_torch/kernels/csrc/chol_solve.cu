@@ -45,63 +45,26 @@
 //   complex64 runs in FP32 FMA on the CUDA cores, 4 x 2 register tiles per
 //   lane (no TF32); complex128 on the FP64 tensor cores (mma.sync m8n8k4
 //   f64, 2 x 2 tiles per warp, four real products per complex one).
-// - Global path, for sizes whose triangle does not fit (complex128 M > 167,
-//   complex64 M > 238): the same blocked algorithm over a packed triangle in a
-//   device-memory workspace (the factor output), with each panel staged in
-//   shared memory (row stride NB + 1 against bank conflicts) so the rank-NB
-//   update reads its operands on chip and streams each trailing element once
-//   per panel (about M/16 passes over the triangle, which stay in L2 while
-//   the batch's workspaces fit its 50 MB).  Its staged panel, M x 17 entries,
-//   caps it at complex128 M = 764 and complex64 M = 1529; complex64 takes it
-//   up to M = 706 (the routing table at path_of).
-// - Cluster path, for every order whose staged panel does not fit one block
-//   (and, by measurement, complex64 orders past 706: path_of): one system is
-//   split over a thread-block cluster of C = 2..8 blocks on neighbouring SMs.
-//   The NB-row blocks of the matrix go to the cluster's blocks
-//   block-cyclically (row block rb to rank rb % C), so the shrinking trailing
-//   triangle stays balanced.  Each rank stages only its own panel rows, about (M / C) x 17
-//   entries, which lifts the order limit C-fold; per panel (two cluster
-//   barriers):
-//   (a) each rank stages its own panel rows; every rank copies L11 (factored
-//       into the workspace by the diagonal block's owner in the previous
-//       panel's look-ahead) and its rsqrt pivots (from the owner's shared
-//       memory, through distributed shared memory) into a local copy;
-//   (b) each rank solves its own panel rows against L11; the owner solves
-//       y1; cluster barrier;
-//   (c) each rank updates the tiles (i, k) of its own row blocks i, reading
-//       panel rows of block k from their owner's shared memory through
-//       distributed shared memory (map_shared_rank; complex128 reads them
-//       once per column of its tiles and keeps them in registers), and its
-//       own rows of y2 -= L21 y1; the owner of the next diagonal block
-//       takes that tile and factors it with one warp (look-ahead); cluster
-//       barrier.
-//   The forward substitution's y and the diagonal live in device memory (x
-//   and d: the wrapper always gives d here), so shared memory holds the
-//   staged rows and a few NB-sized buffers only.  Rank 0 runs the backward
-//   substitution alone at the end, as the global path does.  Global loads
-//   of data another rank wrote go through L2 (ld.global.cg).
-//   In (c) complex64 copies block k's rows into a per-warp shared buffer
-//   once per column instead (no registers to spare).  On every path a
-//   tile's elements are read before its products, so the latency of device
-//   memory overlaps the arithmetic.
-// - Slab path, past the cluster path's capacity at C = 8 (complex128
-//   M > 6656, complex64 M > 12416): the same cluster kernel with nothing
-//   staged; each warp reads the two 16-row slabs of panel rows its tile
-//   needs straight from the workspace (L2), so shared memory is a fixed
-//   4.5 KB (complex128) or 19.3 KB (complex64) for any M.  Slow, and it
-//   takes every M whose tensors the caller can allocate.
-// - Backward substitution L^H x = y, and both sweeps of the substitution
-//   entry point, are blocked the same way: one warp solves each NB-row
-//   diagonal block with shuffles, then all threads update the remaining rows
-//   (forward) or columns (backward), two barriers per block.  The
-//   substitution entry point stages the packed factor in shared memory
+//   A tile's elements are read before its products, so the latency of
+//   shared memory overlaps the arithmetic.
+// - Tiled path, for every order whose triangle does not fit (complex128
+//   M > 167, complex64 M > 238; see chol_tiled_panel): one system spread
+//   over the whole card by a sequence of launches, a panel launch and a
+//   trailing-update launch per 64 columns and a backward-substitution launch
+//   per 64 rows, each a grid over (system, 64-row tile) pairs; panels in
+//   pairs (each trailing element read and written once per 128 columns),
+//   complex128 on mma.sync m16n8k4.
+// - The resident path's backward substitution L^H x = y, and both sweeps of
+//   the substitution entry point, are blocked the same way: one warp solves
+//   each NB-row diagonal block with shuffles, then all threads update the
+//   remaining rows (forward) or columns (backward), two barriers per block.
+//   The substitution entry point stages the packed factor in shared memory
 //   (cp.async) at the resident sizes, reads it from device memory with y in
 //   shared memory where y fits, and otherwise keeps y in x as well.
 //
 // It takes any M >= 1 and any B: no padding to a panel width, no batch
 // padding.  Complex values are interleaved (float2 / double2), which is the
 // layout of torch.complex64 / torch.complex128.
-#include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
@@ -109,17 +72,15 @@
 
 #include <atomic>
 
-namespace cg = cooperative_groups;
+#include "chol_plan.h"
 
 #ifdef CHOL_PHASE_CLOCKS
 // Profiling build only (tools/bench_chol_phases.py): thread 0 of each block
-// adds the cycles of each phase of its block's timeline, barrier waits
-// included, to g_clk: 0 load, 1 diagonal block, 2 panel rows, 3 trailing
-// update with the next diagonal block (look-ahead), 4 panel staging, 5
-// backward substitution, 6 output, 7 blocks; the first diagonal block counts
-// in 1.  On the cluster and slab paths every block of a cluster counts, the
-// cluster barriers count in the phase they close (2 and 3), and only rank 0
-// has phases 5 and 6.
+// of the resident kernel adds the cycles of each phase of its block's
+// timeline, barrier waits included, to g_clk: 0 load, 1 diagonal block, 2
+// panel rows, 3 trailing update with the next diagonal block (look-ahead),
+// 4 backward substitution, 5 output, 7 blocks (6 unused); the first
+// diagonal block counts in 1.
 __device__ unsigned long long g_clk[8];
 #define CLK_START long long clk_prev = clock64(); unsigned long long clk[8] = {0};
 #define CLK_MARK(slot)                                       \
@@ -128,15 +89,25 @@ __device__ unsigned long long g_clk[8];
     clk[slot] += now - clk_prev;                             \
     clk_prev = now;                                          \
   }
-#define CLK_FLUSH                                            \
+#define CLK_FLUSH_TO(dst)                                    \
   if (tid == 0) {                                            \
     clk[7] = 1;                                              \
-    for (int q = 0; q < 8; ++q) atomicAdd(&g_clk[q], clk[q]); \
+    for (int q = 0; q < 8; ++q) atomicAdd(&dst[q], clk[q]);  \
   }
+#define CLK_FLUSH CLK_FLUSH_TO(g_clk)
+// The tiled path's kernels add theirs to g_tclk: 0 load of the panel
+// kernels (chol_tiled_diag0, chol_tiled_panel), 1 their four steps, 2 the
+// steps of the next diagonal block in the trailing update, 3 the panels'
+// stores (L11, y1, L21), 4 trailing update (operand loads and products), 5
+// its epilogue (the tile and y written), 6 backward substitution, 7 blocks
+// of all four kernels.
+__device__ unsigned long long g_tclk[8];
+#define TCLK_FLUSH CLK_FLUSH_TO(g_tclk)
 #else
 #define CLK_START
 #define CLK_MARK(slot)
 #define CLK_FLUSH
+#define TCLK_FLUSH
 #endif
 
 namespace {
@@ -154,10 +125,8 @@ template <> struct Cplx<double> {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int NB = 16;          // panel width
-constexpr int kPS = NB + 1;     // staged panel row stride
 constexpr size_t kSmemMax = 232448;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxCluster = 8;  // the portable cluster size
 
 __device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
 __device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
@@ -169,14 +138,6 @@ template <> __device__ __forceinline__ double nan_t<double>() {
 
 __host__ __device__ __forceinline__ long long tri_off(long long i) {
   return i * (i + 1) / 2;
-}
-
-// A load from device memory through L2 only (kCg: data another block of the
-// cluster wrote), or a plain load (shared memory, or data of this block).
-template <bool kCg, typename V>
-__device__ __forceinline__ V ldx(const V* p) {
-  if constexpr (kCg) return __ldcg(p);
-  else return *p;
 }
 
 // a -= x * y
@@ -196,6 +157,14 @@ template <typename C>
 __device__ __forceinline__ void add_mul_conj(C& a, const C& x, const C& y) {
   a.x += x.x * y.x + x.y * y.y;
   a.y += x.y * y.x - x.x * y.y;
+}
+// the same as four fused multiply-adds (two a component)
+template <typename C>
+__device__ __forceinline__ void fma_mul_conj(C& a, const C& x, const C& y) {
+  a.x = fma(x.x, y.x, a.x);
+  a.x = fma(x.y, y.y, a.x);
+  a.y = fma(x.y, y.x, a.y);
+  a.y = fma(-x.x, y.y, a.y);
 }
 template <typename C, typename T>
 __device__ __forceinline__ void scale(C& a, T s) {
@@ -220,34 +189,19 @@ __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
+// Shared memory of the resident kernel: y [M] C, the triangle, rd [M] T,
+// dinv [M] T, failure flag.
 template <typename T>
-size_t smem_bytes(int M, bool resident) {
+size_t smem_bytes(int M) {
   using C = typename Cplx<T>::type;
-  const size_t store = resident ? (size_t)tri_off(M) : (size_t)M * kPS;
-  // y [M] C, triangle or panel, rd [M] T, dinv [M] T, failure flag
-  return (M + store) * sizeof(C) + 2 * (size_t)M * sizeof(T) + 16;
-}
-
-// Shared memory of one block of the cluster kernel: its own staged panel
-// rows (none on the slab path), the local copy of L11, complex64 only a
-// k block per warp (kKWarp), rd of the diagonal block it factored and the
-// local copy of the current panel's rd, a flag.
-template <typename T>
-constexpr int kKWarp = sizeof(T) == 4 ? kWarps : 0;
-
-template <typename T>
-size_t cluster_smem_bytes(int M, int C, bool staged) {
-  using Cx = typename Cplx<T>::type;
-  const long long nrb = (M + NB - 1) / NB;
-  const size_t nslot = staged ? (size_t)((nrb + C - 1) / C) : 0;
-  return (nslot + 1 + kKWarp<T>) * NB * kPS * sizeof(Cx) +
-         2 * NB * sizeof(T) + 16;
+  return (M + (size_t)tri_off(M)) * sizeof(C) + 2 * (size_t)M * sizeof(T) +
+         16;
 }
 
 // dv[j] is 1 / L[j, j] (kInv false) or L[j, j] itself (kInv true).
-template <typename T, bool kInv, bool kCg>
+template <typename T, bool kInv>
 __device__ __forceinline__ T inv_diag(const T* dv, int j) {
-  const T v = ldx<kCg>(dv + j);
+  const T v = dv[j];
   return kInv ? T(1) / v : v;
 }
 
@@ -256,7 +210,7 @@ __device__ __forceinline__ T inv_diag(const T* dv, int j) {
 // inverse (kInv).  One warp solves each NB-row diagonal block with
 // shuffles, then all threads update the rows below; all threads of the
 // block call it.
-template <typename T, bool kInv = false, bool kCg = false>
+template <typename T, bool kInv = false>
 __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
                         typename Cplx<T>::type* y, int M) {
   using C = typename Cplx<T>::type;
@@ -266,14 +220,14 @@ __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
   for (int j0 = 0; j0 < M; j0 += NB) {
     const int jb = min(NB, M - j0);
     if (tid < 32) {
-      C v = lane < jb ? ldx<kCg>(y + j0 + lane) : zero;
+      C v = lane < jb ? y[j0 + lane] : zero;
       const C* lr = L + tri_off(j0 + min(lane, jb - 1)) + j0;
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
         if (c < jb) {
-          if (lane == c) scale(v, inv_diag<T, kInv, kCg>(dv, j0 + c));
+          if (lane == c) scale(v, inv_diag<T, kInv>(dv, j0 + c));
           const C yc = shfl(v, c);
-          if (lane > c && lane < jb) sub_mul(v, ldx<kCg>(lr + c), yc);
+          if (lane > c && lane < jb) sub_mul(v, lr[c], yc);
         }
       }
       if (lane < jb) y[j0 + lane] = v;
@@ -281,9 +235,9 @@ __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
     __syncthreads();
     for (int i = j0 + jb + tid; i < M; i += kThreads) {
       const C* lr = L + tri_off(i) + j0;
-      C s = ldx<kCg>(y + i);
+      C s = y[i];
       for (int c = 0; c < jb; ++c)
-        sub_mul(s, ldx<kCg>(lr + c), ldx<kCg>(y + j0 + c));
+        sub_mul(s, lr[c], y[j0 + c]);
       y[i] = s;
     }
     __syncthreads();
@@ -292,7 +246,7 @@ __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
 
 // Backward L^H x = y, in place in y; the same blocking from the last block
 // (row j of L is column j of L^H, read by neighbouring threads).
-template <typename T, bool kInv = false, bool kCg = false>
+template <typename T, bool kInv = false>
 __device__ void backward(const typename Cplx<T>::type* L, const T* dv,
                          typename Cplx<T>::type* y, int M) {
   using C = typename Cplx<T>::type;
@@ -302,44 +256,43 @@ __device__ void backward(const typename Cplx<T>::type* L, const T* dv,
   for (int j0 = ((M - 1) / NB) * NB; j0 >= 0; j0 -= NB) {
     const int jb = min(NB, M - j0);
     if (tid < 32) {
-      C v = lane < jb ? ldx<kCg>(y + j0 + lane) : zero;
+      C v = lane < jb ? y[j0 + lane] : zero;
 #pragma unroll
       for (int c = NB - 1; c >= 0; --c) {
         if (c < jb) {
-          if (lane == c) scale(v, inv_diag<T, kInv, kCg>(dv, j0 + c));
+          if (lane == c) scale(v, inv_diag<T, kInv>(dv, j0 + c));
           const C xc = shfl(v, c);
           // L^H[lane, c] = conj(L[c, lane])
           if (lane < c)
-            sub_mul_conj(v, xc, ldx<kCg>(L + tri_off(j0 + c) + j0 + lane));
+            sub_mul_conj(v, xc, L[tri_off(j0 + c) + j0 + lane]);
         }
       }
       if (lane < jb) y[j0 + lane] = v;
     }
     __syncthreads();
     for (int k = tid; k < j0; k += kThreads) {
-      C s = ldx<kCg>(y + k);
+      C s = y[k];
       for (int c = 0; c < jb; ++c)
-        sub_mul_conj(s, ldx<kCg>(y + j0 + c),
-                     ldx<kCg>(L + tri_off(j0 + c) + k));
+        sub_mul_conj(s, y[j0 + c], L[tri_off(j0 + c) + k]);
       y[k] = s;
     }
     __syncthreads();
   }
 }
 
-// Factor the jb x jb diagonal block at (j0, j0) of the packed triangle A in
-// place, by one warp: lane r holds row j0 + r in registers and the column
-// values travel by shuffles.  Writes rd[r] = rsqrt(pivot) and dv[r] =
-// 1 / L[j0 + r, j0 + r] (or L[j0 + r, j0 + r] itself with dv_plain) for the
-// block's rows, and sets *flag on a failed pivot in the "nan" rule.
-template <typename T>
-__device__ void factor_diagonal_block(typename Cplx<T>::type* A, int j0,
-                                      int jb, T* rd, T* dv, bool dv_plain,
-                                      int nan_mode, int* flag) {
+// Factor a jb x jb diagonal block (jb <= NB; row r of the block starts at
+// row(r)) in place, by one warp: lane r holds row r in registers and the
+// column values travel by shuffles.  Writes rd[r] = rsqrt(pivot) and, where
+// dv is given, dv[r] = 1 / L[r, r] (or L[r, r] itself with dv_plain) for the
+// block's rows, and sets *flag (where given) on a failed pivot in the "nan"
+// rule.
+template <typename T, typename ROW>
+__device__ void factor_block(ROW row, int jb, T* rd, T* dv, bool dv_plain,
+                             int nan_mode, int* flag) {
   using C = typename Cplx<T>::type;
   const int r = threadIdx.x & 31;
   const C zero = {T(0), T(0)};
-  C* pr = A + tri_off(j0 + min(r, jb - 1)) + j0;
+  C* pr = row(min(r, jb - 1));
   C a[NB];
 #pragma unroll
   for (int c = 0; c < NB; ++c) a[c] = (r < jb && c <= r) ? pr[c] : zero;
@@ -376,9 +329,18 @@ __device__ void factor_diagonal_block(typename Cplx<T>::type* A, int j0,
     for (int c = 0; c < NB; ++c)
       if (c <= r) pr[c] = a[c];
     rd[r] = myrd;
-    dv[r] = dv_plain ? myd : T(1) / myd;
+    if (dv != nullptr) dv[r] = dv_plain ? myd : T(1) / myd;
   }
-  if (failed && r == 0) *flag = 1;
+  if (failed && r == 0 && flag != nullptr) *flag = 1;
+}
+
+// The diagonal block at (j0, j0) of the packed triangle A.
+template <typename T>
+__device__ void factor_diagonal_block(typename Cplx<T>::type* A, int j0,
+                                      int jb, T* rd, T* dv, bool dv_plain,
+                                      int nan_mode, int* flag) {
+  factor_block<T>([=](int r) { return A + tri_off(j0 + r) + j0; }, jb, rd,
+                  dv, dv_plain, nan_mode, flag);
 }
 
 // complex128 tiles on the FP64 tensor cores: 2 x 2 tiles of mma.m8n8k4.f64
@@ -389,21 +351,21 @@ __device__ void factor_diagonal_block(typename Cplx<T>::type* A, int j0,
 // last valid row stands in for the rows past the matrix).
 using KFrag = double2[NB / 4][2];
 
-template <bool kCg, typename PK>
+template <typename PK>
 __device__ __forceinline__ void load_kfrag(KFrag& fb, PK pk, int nk) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const double2* r = pk(min(8 * h + g, nk - 1));
 #pragma unroll
-    for (int c = 0; c < NB / 4; ++c) fb[c][h] = ldx<kCg>(r + 4 * c + q);
+    for (int c = 0; c < NB / 4; ++c) fb[c][h] = r[4 * c + q];
   }
 }
 
 // A[I0 + i, K0 + k] -= sum_c Pi[i][c] conj(Pk[k][c]) for one complex128
 // tile whose k operand is loaded (fb); see update_tile.  The tile's
 // elements are read first, so their latency overlaps the products.
-template <bool kCgI, typename PI, typename OUT>
+template <typename PI, typename OUT>
 __device__ __forceinline__ void tile_c128(PI pi, const KFrag& fb, OUT out,
                                           int ni, int I0, int K0) {
   using C = double2;
@@ -437,7 +399,7 @@ __device__ __forceinline__ void tile_c128(PI pi, const KFrag& fb, OUT out,
   for (int c = 0; c < NB / 4; ++c) {
     C fa[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) fa[h] = ldx<kCgI>(pa[h] + 4 * c + q);
+    for (int h = 0; h < 2; ++h) fa[h] = pa[h][4 * c + q];
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
@@ -473,17 +435,15 @@ __device__ __forceinline__ void tile_c128(PI pi, const KFrag& fb, OUT out,
 // pi(i) / pk(k): the panel row (NB entries) of matrix row I0 + i / K0 + k,
 // called with i < ni / k < nk only (the last valid row stands in for the
 // rows past the matrix; their results are dropped); out(i): row I0 + i of
-// the packed triangle from column K0.  kCgI / kCgK: the rows of pi / pk
-// are device memory another block wrote.
-template <typename T, bool kCgI, bool kCgK, typename PI, typename PK,
-          typename OUT>
+// the packed triangle from column K0.
+template <typename T, typename PI, typename PK, typename OUT>
 __device__ __forceinline__ void update_tile(PI pi, PK pk, OUT out, int ni,
                                             int nk, int I0, int K0) {
   using C = typename Cplx<T>::type;
   if constexpr (sizeof(T) == 8) {
     KFrag fb;
-    load_kfrag<kCgK>(fb, pk, nk);
-    tile_c128<kCgI>(pi, fb, out, ni, I0, K0);
+    load_kfrag(fb, pk, nk);
+    tile_c128(pi, fb, out, ni, I0, K0);
   } else {
     // complex64 in FP32 FMA: lane (gi, gk) = (lane / 8, lane % 8) owns rows
     // gi + 4u (u < 4) and columns gk + 8v (v < 2) of the tile, so the lanes
@@ -516,9 +476,9 @@ __device__ __forceinline__ void update_tile(PI pi, PK pk, OUT out, int ni,
     for (int c = 0; c < NB; ++c) {
       C li[4], lk[2];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) li[u] = ldx<kCgI>(pa[u] + c);
+      for (int u = 0; u < 4; ++u) li[u] = pa[u][c];
 #pragma unroll
-      for (int v = 0; v < 2; ++v) lk[v] = ldx<kCgK>(pb[v] + c);
+      for (int v = 0; v < 2; ++v) lk[v] = pb[v][c];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -542,7 +502,7 @@ __device__ __forceinline__ void update_tile(PI pi, PK pk, OUT out, int ni,
   }
 }
 
-template <typename T, bool kResident>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, Cplx<T>::kMinBlocks)
 chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
                          const typename Cplx<T>::type* __restrict__ rhs,
@@ -552,8 +512,8 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
   using C = typename Cplx<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* y = reinterpret_cast<C*>(smem_raw);             // [M] rhs -> y -> x
-  C* S = y + M;                                      // triangle or panel
-  T* rdv = reinterpret_cast<T*>(S + (kResident ? tri_off(M) : (long long)M * kPS));
+  C* A = y + M;                                      // the triangle
+  T* rdv = reinterpret_cast<T*>(A + tri_off(M));
   T* dinv = rdv + M;                                 // [M] 1 / L[j, j]
   int* flag = reinterpret_cast<int*>(dinv + M);
 
@@ -563,29 +523,20 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
   const int warp = tid >> 5;
   const long long P = tri_off(M);
   const C zero = {T(0), T(0)};
-  // the packed triangle: shared memory, or the device-memory factor output
-  C* A = kResident ? S : Lout + b * P;
   CLK_START
 
-  {
+  {    // asynchronous copies: all rows in flight at once
     const C* Rb = R + b * (long long)M * M;
     for (int i = warp; i < M; i += kWarps) {
       C* dst = A + tri_off(i);
       const C* src = Rb + (long long)i * M;
-      if (kResident) {   // asynchronous copies: all rows in flight at once
-        for (int k = lane; k <= i; k += 32)
-          __pipeline_memcpy_async(dst + k, src + k, sizeof(C));
-      } else {
-#pragma unroll 4
-        for (int k = lane; k <= i; k += 32) dst[k] = src[k];
-      }
+      for (int k = lane; k <= i; k += 32)
+        __pipeline_memcpy_async(dst + k, src + k, sizeof(C));
     }
     for (int i = tid; i < M; i += kThreads) y[i] = rhs[b * M + i];
     if (tid == 0) *flag = 0;
-    if (kResident) {
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
   }
   __syncthreads();
   CLK_MARK(0)
@@ -599,17 +550,7 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
     const int jb = min(NB, M - j0);
     const int np = M - j0;                           // panel rows
     // row r of the panel (matrix row j0 + r, columns j0 ..)
-    auto prow = [&](int r) -> C* {
-      return kResident ? A + tri_off(j0 + r) + j0 : S + (long long)r * kPS;
-    };
-    if (!kResident) {          // unrolled: eight rows' loads in flight
-      const int c = tid % NB;
-#pragma unroll 8
-      for (int r = tid / NB; r < np; r += kThreads / NB)
-        if (c < jb && c <= r) S[r * kPS + c] = A[tri_off(j0 + r) + j0 + c];
-      __syncthreads();
-      CLK_MARK(4)
-    }
+    auto prow = [&](int r) -> C* { return A + tri_off(j0 + r) + j0; };
 
     // (2) panel rows below the diagonal block (factored in the previous
     //     step): L21 = A21 L11^-H, one row per thread; the last thread also
@@ -645,13 +586,6 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
     __syncthreads();
     CLK_MARK(2)
 
-    if (!kResident) {           // the finished panel back to the workspace
-      const int c = tid % NB;
-#pragma unroll 8
-      for (int r = tid / NB; r < np; r += kThreads / NB)
-        if (jb <= r && c < jb) A[tri_off(j0 + r) + j0 + c] = S[r * kPS + c];
-    }
-
     // (3) trailing update A[i, k] -= sum_c L[i, c] conj(L[k, c]),
     //     j0 + jb <= k <= i < M, in 16 x 16 warp tiles of the lower
     //     triangle (update_tile).  Look-ahead: warp 0 takes tile (0, 0), the
@@ -665,7 +599,7 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
       while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
       const int bk = t - bi * (bi + 1) / 2;
       const int ri = jb + 16 * bi, rk = jb + 16 * bk;    // panel rows
-      update_tile<T, false, false>(
+      update_tile<T>(
           [&](int i) -> const C* { return prow(ri + i); },
           [&](int k) -> const C* { return prow(rk + k); },
           [&](int i) -> C* { return A + tri_off(j0 + ri + i) + j0 + rk; },
@@ -694,7 +628,7 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
   }
 
   backward<T>(A, dinv, y, M);
-  CLK_MARK(5)
+  CLK_MARK(4)
 
   const bool bad = *flag != 0;
   const C cnan = {nan_t<T>(), nan_t<T>()};
@@ -702,255 +636,616 @@ chol_factor_solve_kernel(const typename Cplx<T>::type* __restrict__ R,
   if (dout != nullptr)
     for (int i = tid; i < M; i += kThreads)
       dout[b * M + i] = bad ? nan_t<T>() : A[tri_off(i) + i].x;
-  if (kResident && Lout != nullptr) {
+  if (Lout != nullptr) {
     C* dst = Lout + b * P;
-    for (long long e = tid; e < P; e += kThreads) dst[e] = S[e];
+    for (long long e = tid; e < P; e += kThreads) dst[e] = A[e];
   }
-  CLK_MARK(6)
+  CLK_MARK(5)
   CLK_FLUSH
 }
 
-// The cluster path (kStaged) and the slab path (!kStaged): one system per
-// cluster of gridDim-consecutive blocks, the packed triangle in the
-// workspace Lw (the factor output), y in x, L[j, j] in dw.  Row block rb
-// (matrix rows 16 rb ..) belongs to rank rb % C and sits in its staging
-// slot rb / C.  Two launch bounds' blocks per SM: at the stress widths a
-// rank's shared memory is small enough for two.
-template <typename T, bool kStaged>
-__global__ void __launch_bounds__(kThreads, 2)
-chol_cluster_kernel(const typename Cplx<T>::type* __restrict__ R,
-                    const typename Cplx<T>::type* __restrict__ rhs,
-                    typename Cplx<T>::type* __restrict__ x,
-                    typename Cplx<T>::type* __restrict__ Lw,
-                    T* __restrict__ dw, int M, int nan_mode) {
-  using C = typename Cplx<T>::type;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nc = (int)cluster.num_blocks();
-  const int q = (int)cluster.block_rank();
-  const int nrb = (M + NB - 1) / NB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* L11 = reinterpret_cast<C*>(smem_raw);           // [NB][kPS] local copy
-  C* Kw = L11 + NB * kPS;                            // [kKWarp][NB][kPS]
-  C* S = Kw + kKWarp<T> * NB * kPS;                  // own panel rows
-  const int nslot = kStaged ? (nrb + nc - 1) / nc : 0;
-  T* rdb = reinterpret_cast<T*>(S + (long long)nslot * NB * kPS);
-  T* rds = rdb + NB;                                 // this panel's rd
-  int* flag = reinterpret_cast<int*>(rds + NB);
+// The tiled path: one system spread over the card, for the orders where one
+// block per system leaves SMs idle or moves too many bytes (path_of).  The
+// packed triangle lives in the workspace Lw (the factor output), y in x,
+// L[j, j] in dw, the current diagonal block's rsqrt pivots in wk [B][kTB].
+// Per panel of kTB = 64 columns:
+//   the diagonal block is factored by one block of 256 threads, in four
+//   steps of NB = 16 columns (one warp factors the 16 x 16 diagonal
+//   sub-block, a thread per row solves the rows below it, warp tiles update
+//   the columns right of it: the resident path's in-panel work), which then
+//   writes L11, L[j, j], rd and y1 = L11^-1 y1 (diag_finish).  The first
+//   panel's is chol_tiled_diag0; every later one is taken by the block of
+//   the previous trailing update that updates it, right after its update;
+//   chol_tiled_panel   a block per 64-row tile of the panel below the
+//                      diagonal block (blockIdx.y the system): its rows
+//                      solved against the finished L11 in the same four
+//                      steps (L21 = A21 L11^-H, each entry updated * rd);
+//   chol_tiled_update  a block per 64 x 64 tile (I, K) of the trailing lower
+//                      triangle of every system: A[I, K] -= L[I] L[K]^H
+//                      over the panel columns it takes (depth 64 or 128),
+//                      both operands streamed through a two-stage cp.async
+//                      ring of 16 columns (the products of one chunk run
+//                      while the next arrives), 84 KB a block, so two
+//                      blocks share an SM and one's loads and stores run
+//                      under the other's products; complex128 on mma.sync
+//                      m16n8k4 (a warp 16 x 32 of the tile, four real
+//                      products per complex one), complex64 on FP32 FFMA (a
+//                      thread 4 x 4 entries, four FFMA a complex product);
+//                      the tile's entries are staged in the ring's space
+//                      after the products (in registers they spilled).  The
+//                      diagonal tiles also take y2 -= L21 y1 for their
+//                      rows; tile (0, 0), the next diagonal block, is then
+//                      factored in place (above).
+// The panels go in pairs (p, p + 1): panel p's rows, the update of the
+// first column of tiles right of it with panel p alone (depth 64), panel
+// p + 1's rows, then the update of every tile right of both with both
+// (depth 128); a last panel without a partner updates all it has to (depth
+// 64).  So each trailing element is read and written once per 128 columns
+// (about M^3/384 accesses a system, an eighth of the 16-column paths'),
+// and the launches stay two a panel: 32 bytes of device memory (complex128)
+// against 1024 flops a visit, above the card's 20 flops a byte, so the
+// update is bound by its arithmetic, not its bytes.  No launch reads what
+// another block of the same launch writes.  The first panel's launches read
+// R itself (its lower triangle), so R is copied into the workspace by the
+// launches that update it.  Then one launch per 64-row block u, from the
+// last, runs the backward substitution (chol_tiled_backward): a
+// block per 64-column chunk c <= u subtracts block u + 1's finished x from
+// its chunk (four row groups, summed in order), and the block of chunk u
+// then solves its diagonal block with one warp from a staged copy.  In the
+// "nan" rule a failed pivot leaves L[j, j] NaN (rsqrt of a pivot <= 0 or
+// NaN), and the last launch turns x and the diagonal of every system with a
+// NaN on its diagonal to NaN.  The sequence is chol_plan.h's
+// tiled_schedule: 3 ceil(M / 64) - 1 launches a call (for each 65535
+// systems); no host synchronisation, nothing allocated, every
+// launch's grid a function of (B, M): a CUDA graph captures the sequence.
+constexpr int kTB = chol_plan::kTB;      // panel width and tile edge
+constexpr int kPL = kTB + 1;             // panel kernels' staged row stride
+// update kernel's: complex128 fragments read rows g and g + 1 at columns q
+// (a stride of 4 mod 8 double2 keeps each quarter warp on its own banks)
+template <typename T>
+constexpr int kUL = sizeof(T) == 8 ? kTB + 4 : kTB + 1;
 
-  const long long b = blockIdx.x / nc;
+// row of the lower-triangle index t (t = row (row + 1) / 2 + col)
+__device__ __forceinline__ int tri_row(int t) {
+  int r = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (r * (r + 1) / 2 > t) --r;
+  while ((r + 1) * (r + 2) / 2 <= t) ++r;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d[0..3] += a * b on the FP64 tensor cores, one m16n8k4 product per warp.
+// Fragments (PTX ISA, m16n8k4 .f64): A[g][q] and A[g + 8][q], B[q][g],
+// C[g][2q + e] and C[g + 8][2q + e], g = lane / 4, q = lane % 4.
+__device__ __forceinline__ void mma16_f64(double (&d)[4], double a0,
+                                          double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The four NB-column steps of a 64-column panel, on staged rows: row(r) is
+// column 0 of the panel in staged row r; rows 0..jb-1 the diagonal block
+// (lower triangle), rows kTB..kTB+nown-1 rows below it.  With factor, the
+// diagonal block is factored (its rsqrt pivots to rd) and the own rows
+// solved with it; without, the diagonal block is already L11 (and rd its
+// pivots) and only the own rows are solved.  All threads of the block call
+// it; it ends with a barrier.
+template <typename T, typename ROW>
+__device__ void panel_steps(ROW row, int jb, int nown, T* rd, bool factor,
+                            int nan_mode) {
+  using C = typename Cplx<T>::type;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const C zero = {T(0), T(0)};
-  C* A = Lw + b * tri_off(M);
-  C* y = x + b * M;
-  T* dg = dw + b * M;
-  auto srow = [&](C* base, int rb, int r) -> C* {    // staged row r of rb
-    return base + ((long long)(rb / nc) * NB + r) * kPS;
-  };
-  CLK_START
-
-  {  // own rows of R's lower triangle into the workspace, own rows of rhs
-    const C* Rb = R + b * (long long)M * M;
-    const int nown = q < nrb ? (nrb - 1 - q) / nc + 1 : 0;
-    for (int t = warp; t < nown * NB; t += kWarps) {
-      const int i = (q + nc * (t / NB)) * NB + t % NB;
-      if (i >= M) continue;
-      C* dst = A + tri_off(i);
-      const C* src = Rb + (long long)i * M;
-#pragma unroll 4
-      for (int k = lane; k <= i; k += 32) dst[k] = src[k];
+  for (int c0 = 0; c0 < jb; c0 += NB) {
+    const int sb = min(NB, jb - c0);
+    if (factor) {
+      if (warp == 0)
+        factor_block<T>([&](int r) { return row(c0 + r) + c0; }, sb,
+                        rd + c0, (T*)nullptr, false, nan_mode,
+                        (int*)nullptr);
+      __syncthreads();
     }
-    for (int t = tid; t < nown * NB; t += kThreads) {
-      const int i = (q + nc * (t / NB)) * NB + t % NB;
-      if (i < M) y[i] = rhs[b * M + i];
-    }
-    if (tid == 0) *flag = 0;
-  }
-  __syncthreads();
-  CLK_MARK(0)
-  if (q == 0 && warp == 0)
-    factor_diagonal_block<T>(A, 0, min(NB, M), rdb, dg, true, nan_mode, flag);
-  cluster.sync();
-  CLK_MARK(1)
-
-  for (int p = 0; p < nrb; ++p) {
-    const int j0 = p * NB, jb = min(NB, M - j0);
-    const int od = p % nc;                           // owner of the diagonal
-    const int first = p + ((q - p % nc) + nc) % nc;  // own blocks >= p
-    const int fb = first == p ? first + nc : first;  // own blocks > p
-    const int nown = fb < nrb ? (nrb - 1 - fb) / nc + 1 : 0;
-    // own panel row t (t < nown * NB): block fb + nc (t / NB), row t % NB
-    auto own_row = [&](int t) -> C* {
-      const int rb = fb + nc * (t / NB), r = t % NB;
-      return kStaged ? srow(S, rb, r) : A + tri_off(rb * NB + r) + j0;
-    };
-
-    // (a) stage own panel rows below the diagonal block; copy L11 (from
-    //     the workspace) and its rd
-    if (kStaged) {
-      const int r = tid / NB, c = tid % NB;
-#pragma unroll 4
-      for (int rb = fb; rb < nrb; rb += nc) {
-        const int i = rb * NB + r;
-        if (i < M && c < jb) srow(S, rb, r)[c] = A[tri_off(i) + j0 + c];
-      }
-    }
-    {
-      const int r = tid / NB, c = tid % NB;
-      if (r < jb && c <= r)
-        L11[r * kPS + c] = ldx<true>(A + tri_off(j0 + r) + j0 + c);
-      if (tid < jb) rds[tid] = cluster.map_shared_rank(rdb, od)[tid];
-    }
-    __syncthreads();
-    CLK_MARK(4)
-
-    // (b) own panel rows below the diagonal block: L21 = A21 L11^-H; the
-    //     owner of the diagonal block solves L11 y1 = b1
-    for (int t = tid; t < nown * NB; t += kThreads) {
-      if ((fb + nc * (t / NB)) * NB + t % NB >= M) continue;
-      C* pr = own_row(t);
+    // rows below the sub-block, in its columns: L21 = A21 L11^-H
+    const int nd = jb - c0 - sb;                     // columns right of it
+    const int ndr = factor ? nd : 0;                 // diagonal-block rows
+    for (int w = tid; w < ndr + nown; w += kThreads) {
+      C* pr = (w < ndr ? row(c0 + sb + w) : row(kTB + w - ndr)) + c0;
       C a[NB];
 #pragma unroll
-      for (int c = 0; c < NB; ++c) a[c] = c < jb ? pr[c] : zero;
+      for (int c = 0; c < NB; ++c) a[c] = c < sb ? pr[c] : zero;
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        if (c < jb) {
+        if (c < sb) {
+          const C* lc = row(c0 + c) + c0;
 #pragma unroll
-          for (int k = 0; k < c; ++k)
-            sub_mul_conj(a[c], a[k], L11[c * kPS + k]);
-          scale(a[c], rds[c]);
+          for (int k = 0; k < c; ++k) sub_mul_conj(a[c], a[k], lc[k]);
+          scale(a[c], rd[c0 + c]);
         }
       }
 #pragma unroll
       for (int c = 0; c < NB; ++c)
-        if (c < jb) pr[c] = a[c];
+        if (c < sb) pr[c] = a[c];
     }
-    if (q == od && tid == kThreads - 1) {
-      for (int c = 0; c < jb; ++c) {
-        C v = y[j0 + c];
-        for (int k = 0; k < c; ++k) sub_mul(v, L11[c * kPS + k], y[j0 + k]);
-        scale(v, T(1) / dg[j0 + c]);
-        y[j0 + c] = v;
-      }
-    }
-    cluster.sync();
-    CLK_MARK(2)
-
-    if (kStaged) {              // own finished panel rows to the workspace
-      const int r = tid / NB, c = tid % NB;
-#pragma unroll 4
-      for (int rb = fb; rb < nrb; rb += nc) {
-        const int i = rb * NB + r;
-        if (i < M && c < jb) A[tri_off(i) + j0 + c] = srow(S, rb, r)[c];
-      }
-    }
-
-    // (c) trailing update of the tiles (i, k) of own row blocks i, k in
-    //     p + 1 .. i; rows of block k from their owner (distributed shared
-    //     memory, or the workspace through L2 on the slab path).
-    //     Look-ahead: the owner of block p + 1 takes its diagonal tile and
-    //     factors it with warp 0; the other warps do the rest and the own
-    //     rows of y2 -= L21 y1.  complex128: a warp's task is one k block
-    //     and every own i block below it (a column of tiles), so the k
-    //     operand is read from its owner once per column and kept in
-    //     registers; tasks go to the warps in snake order (the columns
-    //     shorten down the panel).  complex64 (no registers to spare for
-    //     the operand): tiles one by one, round robin.
-    auto pk_of = [&](int rbk) {
-      C* Sk = kStaged ? cluster.map_shared_rank(S, rbk % nc) : nullptr;
-      return [=](int k) -> const C* {
-        return kStaged ? srow(Sk, rbk, k) : A + tri_off(rbk * NB + k) + j0;
-      };
-    };
-    auto pi_of = [&](int rbi) {
-      return [=](int i) -> const C* {
-        return kStaged ? srow(S, rbi, i) : A + tri_off(rbi * NB + i) + j0;
-      };
-    };
-    auto out_of = [&](int rbi, int rbk) {
-      return [=](int i) -> C* { return A + tri_off(rbi * NB + i) + rbk * NB; };
-    };
-    auto tile = [&](int rbi, int rbk) {
-      update_tile<T, !kStaged, !kStaged>(
-          pi_of(rbi), pk_of(rbk), out_of(rbi, rbk), min(NB, M - rbi * NB),
-          min(NB, M - rbk * NB), rbi * NB, rbk * NB);
-    };
-    const int nx = p + 1;
-    const bool la = nx < nrb && nx % nc == q;
-    if (la && warp == 0) {
-      tile(nx, nx);
-      __syncwarp();
-      factor_diagonal_block<T>(A, nx * NB, min(NB, M - nx * NB), rdb,
-                               dg + nx * NB, true, nan_mode, flag);
-    } else {
-      const int w = la ? warp - 1 : warp;
-      const int nw = la ? kWarps - 1 : kWarps;
-      const int t0 = la ? tid - 32 : tid;
-      for (int t = t0; t < nown * NB; t += nw * 32) {
-        const int i = (fb + nc * (t / NB)) * NB + t % NB;
-        if (i >= M) continue;
-        const C* pr = own_row(t);
-        C v = y[i];
-        for (int c = 0; c < jb; ++c)
-          sub_mul(v, pr[c], ldx<true>(y + j0 + c));
-        y[i] = v;
-      }
-      for (int rbk = nx; rbk < nrb; ++rbk) {
-        const int t = rbk - nx, round = t / nw, pos = t % nw;
-        if ((round & 1 ? nw - 1 - pos : pos) != w) continue;
-        int rbi = rbk + ((q - rbk % nc) + nc) % nc;     // own blocks >= k
-        if (la && rbi == nx) rbi += nc;                 // the look-ahead's
-        if (rbi >= nrb) continue;
-        const int nk = min(NB, M - rbk * NB);
-        if constexpr (sizeof(T) == 8) {
-          KFrag kf;
-          load_kfrag<!kStaged>(kf, pk_of(rbk), nk);
-          for (; rbi < nrb; rbi += nc)
-            tile_c128<!kStaged>(pi_of(rbi), kf, out_of(rbi, rbk),
-                                min(NB, M - rbi * NB), rbi * NB, rbk * NB);
+    __syncthreads();
+    // the panel's columns right of the sub-block: rank-16 update in 16 x 16
+    // warp tiles, the diagonal block's lower tiles (factor) and every tile
+    // of the own rows
+    if (nd > 0) {
+      const int ncg = (nd + NB - 1) / NB;
+      const int ntd = factor ? ncg * (ncg + 1) / 2 : 0;
+      const int nt = ntd + ((nown + NB - 1) / NB) * ncg;
+      for (int tt = warp; tt < nt; tt += kWarps) {
+        int ri, ni, kg, I0, K0;
+        if (tt < ntd) {
+          const int gi = tri_row(tt);
+          kg = tt - gi * (gi + 1) / 2;
+          ri = c0 + sb + NB * gi;
+          ni = min(NB, jb - ri);
+          I0 = ri;
+          K0 = c0 + sb + NB * kg;
         } else {
-          C* kw = Kw + warp * NB * kPS;
-          const auto pk = pk_of(rbk);
-          __syncwarp();
-          for (int e = lane; e < NB * NB; e += 32)
-            kw[(e / NB) * kPS + e % NB] =
-                ldx<!kStaged>(pk(min(e / NB, nk - 1)) + e % NB);
-          __syncwarp();
-          for (; rbi < nrb; rbi += nc)
-            update_tile<T, !kStaged, false>(
-                pi_of(rbi), [=](int k) -> const C* { return kw + k * kPS; },
-                out_of(rbi, rbk), min(NB, M - rbi * NB), nk, rbi * NB,
-                rbk * NB);
+          const int u = tt - ntd, gi = u / ncg;
+          kg = u - gi * ncg;
+          ri = kTB + NB * gi;
+          ni = min(NB, nown - NB * gi);
+          I0 = 1 << 20;                              // every column
+          K0 = 0;
+        }
+        const int ck = c0 + sb + NB * kg;
+        update_tile<T>(
+            [&](int i) -> const C* { return row(ri + i) + c0; },
+            [&](int k) -> const C* { return row(ck + k) + c0; },
+            [&](int i) -> C* { return row(ri + i) + ck; }, ni,
+            min(NB, jb - ck), I0, K0);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// After panel_steps factored the diagonal block at (j0, j0) (rows row(r),
+// pivots rd): L11 to the workspace A, L[j, j] to dg, rd to wk, and
+// y1 = L11^-1 y1 from ys to y (one warp, lane l rows l and l + 32).
+template <typename T, typename ROW>
+__device__ void diag_finish(ROW row, int jb, int j0, const T* rd,
+                            typename Cplx<T>::type* A, T* dg, T* wk,
+                            const typename Cplx<T>::type* ys,
+                            typename Cplx<T>::type* y) {
+  using C = typename Cplx<T>::type;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const C zero = {T(0), T(0)};
+  for (int e = tid; e < jb * jb; e += kThreads) {
+    const int r = e / jb, c = e - r * jb;
+    if (c <= r) A[tri_off(j0 + r) + j0 + c] = row(r)[c];
+  }
+  for (int r = tid; r < jb; r += kThreads) {
+    dg[j0 + r] = row(r)[r].x;
+    wk[r] = rd[r];
+  }
+  if (tid < 32) {
+    C v0 = lane < jb ? ys[j0 + lane] : zero;
+    C v1 = lane + 32 < jb ? ys[j0 + lane + 32] : zero;
+    // 1 / L[r, r] of the lane's rows, ahead of the serial loop
+    const T inv0 = lane < jb ? T(1) / row(lane)[lane].x : T(1);
+    const T inv1 = lane + 32 < jb ? T(1) / row(lane + 32)[lane + 32].x : T(1);
+    for (int c = 0; c < jb; ++c) {
+      C yc;
+      if (c < 32) {
+        if (lane == c) scale(v0, inv0);
+        yc = shfl(v0, c);
+      } else {
+        if (lane == c - 32) scale(v1, inv1);
+        yc = shfl(v1, c - 32);
+      }
+      if (lane > c && lane < jb) sub_mul(v0, row(lane)[c], yc);
+      if (lane + 32 > c && lane + 32 < jb)
+        sub_mul(v1, row(lane + 32)[c], yc);
+    }
+    if (lane < jb) y[j0 + lane] = v0;
+    if (lane + 32 < jb) y[j0 + lane + 32] = v1;
+  }
+}
+
+template <typename T>
+size_t tiled_panel_smem() {       // the diagonal block, 64 own rows, rd
+  using C = typename Cplx<T>::type;
+  return 2 * kTB * kPL * sizeof(C) + kTB * sizeof(T);
+}
+
+// The update kernel's operand ring: two stages of kChunk columns of X and
+// Y; its row stride (complex128 4 mod 8 double2, as kUL; complex64 odd).
+// After the products the same space holds the next diagonal block
+// (stride kUL) while it is factored.
+constexpr int kChunk = 16;
+template <typename T>
+constexpr int kRL = sizeof(T) == 8 ? kChunk + 4 : kChunk + 1;
+template <typename T>
+constexpr int kUpdRegion = 4 * kTB * kRL<T> > kTB * kUL<T>
+                               ? 4 * kTB * kRL<T> : kTB * kUL<T>;
+
+template <typename T>
+size_t tiled_update_smem() {      // the ring (or the block), rd
+  using C = typename Cplx<T>::type;
+  return (size_t)kUpdRegion<T> * sizeof(C) + kTB * sizeof(T);
+}
+
+// The first panel's diagonal block, from R: a block per system.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_tiled_diag0(const typename Cplx<T>::type* __restrict__ R,
+                 const typename Cplx<T>::type* __restrict__ rhs,
+                 typename Cplx<T>::type* __restrict__ x,
+                 typename Cplx<T>::type* __restrict__ Lw,
+                 T* __restrict__ dw, T* __restrict__ wk, int M,
+                 int nan_mode) {
+  using C = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* S = reinterpret_cast<C*>(smem_raw);             // [kTB][kPL]
+  T* rd = reinterpret_cast<T*>(S + 2 * kTB * kPL);   // [kTB]
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int jb = min(kTB, M);
+  const C* Rb = R + b * (long long)M * M;
+  auto row = [&](int r) -> C* { return S + r * kPL; };
+  CLK_START
+  for (int e = tid; e < jb * jb; e += kThreads) {
+    const int r = e / jb, c = e - r * jb;
+    if (c <= r)
+      __pipeline_memcpy_async(row(r) + c, Rb + (long long)r * M + c,
+                              sizeof(C));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  CLK_MARK(0)
+  panel_steps<T>(row, jb, 0, rd, true, nan_mode);
+  CLK_MARK(1)
+  diag_finish<T>(row, jb, 0, rd, Lw + b * tri_off(M), dw + b * M,
+                 wk + b * kTB, rhs + b * M, x + b * M);
+  CLK_MARK(3)
+  TCLK_FLUSH
+}
+
+// A panel's rows below its diagonal block: tile t = blockIdx.x + 1 of the
+// panel at column j0 (rows j0 + 64 t ..), system blockIdx.y.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_tiled_panel(const typename Cplx<T>::type* __restrict__ R,
+                 typename Cplx<T>::type* __restrict__ Lw,
+                 const T* __restrict__ wk, int M, int j0) {
+  using C = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* S = reinterpret_cast<C*>(smem_raw);             // [2 kTB][kPL]
+  T* rd = reinterpret_cast<T*>(S + 2 * kTB * kPL);   // [kTB]
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int jb = kTB;                                // rows below: full
+  const int r0 = j0 + kTB * (blockIdx.x + 1);
+  const int nown = min(kTB, M - r0);
+  C* A = Lw + b * tri_off(M);
+  const C* Rb = R + b * (long long)M * M;
+  auto row = [&](int r) -> C* { return S + r * kPL; };
+  CLK_START
+  for (int e = tid; e < jb * jb; e += kThreads) {    // L11, finished
+    const int r = e / jb, c = e - r * jb;
+    if (c <= r)
+      __pipeline_memcpy_async(row(r) + c, A + tri_off(j0 + r) + j0 + c,
+                              sizeof(C));
+  }
+  for (int e = tid; e < nown * jb; e += kThreads) {
+    const int r = e / jb, c = e - r * jb;
+    __pipeline_memcpy_async(row(kTB + r) + c,
+                            j0 == 0 ? Rb + (long long)(r0 + r) * M + c
+                                    : A + tri_off(r0 + r) + j0 + c,
+                            sizeof(C));
+  }
+  __pipeline_commit();
+  if (tid < jb) rd[tid] = wk[b * kTB + tid];
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  CLK_MARK(0)
+  panel_steps<T>(row, jb, nown, rd, false, 0);
+  CLK_MARK(1)
+  for (int e = tid; e < nown * jb; e += kThreads) {
+    const int r = e / jb, c = e - r * jb;
+    A[tri_off(r0 + r) + j0 + c] = row(kTB + r)[c];
+  }
+  CLK_MARK(3)
+  TCLK_FLUSH
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+chol_tiled_update(const typename Cplx<T>::type* __restrict__ R,
+                  const typename Cplx<T>::type* __restrict__ rhs,
+                  typename Cplx<T>::type* __restrict__ x,
+                  typename Cplx<T>::type* __restrict__ Lw,
+                  T* __restrict__ dw, T* __restrict__ wk, int M, int j0,
+                  int depth, int col_only, int nan_mode) {
+  using C = typename Cplx<T>::type;
+  constexpr int RL = kRL<T>, LD = kUL<T>;
+  constexpr int kStage = 2 * kTB * RL;               // X then Y, 16 columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* ring = reinterpret_cast<C*>(smem_raw);          // [2][kStage]
+  T* rd = reinterpret_cast<T*>(ring + kUpdRegion<T>);  // [kTB]
+  const int t = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bi = col_only ? t : tri_row(t);
+  const int bk = col_only ? 0 : t - bi * (bi + 1) / 2;
+  const int I = j0 + depth + kTB * bi, K = j0 + depth + kTB * bk;
+  const int ni = min(kTB, M - I), nk = min(kTB, M - K);
+  const int nchunk = depth / kChunk;
+  const bool diag = bi == bk;
+  const bool next = t == 0;          // the next panel's diagonal block
+  C* A = Lw + b * tri_off(M);
+  const C* Rb = R + b * (long long)M * M;
+  const bool first = j0 == 0;
+  auto live = [&](int i, int k) {
+    return i < ni && k < nk && (!diag || k <= i);
+  };
+  // the tile's entries (R in the first panel's update) into the ring's
+  // space once the products are done (Cs, stride LD), read back by the
+  // thread that updates each: the latency under the other block of the SM
+  C* Cs = ring;
+  auto stage_tile = [&]() {
+    for (int e = tid; e < kTB * kTB; e += kThreads) {
+      const int i = e / kTB, k = e % kTB;
+      if (live(i, k))
+        __pipeline_memcpy_async(
+            Cs + i * LD + k,
+            first ? Rb + (long long)(I + i) * M + K + k
+                  : A + tri_off(I + i) + K + k,
+            sizeof(C));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  };
+  // the updated entry: to the workspace, or for the next diagonal block,
+  // which is factored below, in place in Cs
+  auto put = [&](int i, int k, const C& v) {
+    if (next) Cs[i * LD + k] = v;
+    else A[tri_off(I + i) + K + k] = v;
+  };
+  // columns j0 + 16 g .. of rows I.. and K.. into stage g % 2
+  auto issue = [&](int g) {
+    C* st = ring + (g & 1) * kStage;
+#pragma unroll
+    for (int e = tid; e < kTB * kChunk; e += kThreads) {
+      const int r = e / kChunk, c = e % kChunk;
+      const long long col = j0 + kChunk * g + c;
+      if (r < ni)
+        __pipeline_memcpy_async(st + r * RL + c, A + tri_off(I + r) + col,
+                                sizeof(C));
+      if (!diag && r < nk)
+        __pipeline_memcpy_async(st + (kTB + r) * RL + c,
+                                A + tri_off(K + r) + col, sizeof(C));
+    }
+    __pipeline_commit();
+  };
+  CLK_START
+  issue(0);
+  issue(1);                          // depth >= 2 chunks
+
+  if constexpr (sizeof(T) == 8) {
+    // warp (wr, wc): rows 16 wr.., columns 32 wc.. of the tile; lane
+    // entries (16 wr + g + 8 h, 32 wc + 8 n + 2 q + e)
+    const int wr = warp >> 1, wc = warp & 1;
+    const int g = lane >> 2, q = lane & 3;
+    double cr[4][4], ci[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cr[n][e] = ci[n][e] = 0.0;
+#pragma unroll 1
+    for (int gc = 0; gc < nchunk; ++gc) {
+      if (gc + 1 < nchunk) cp_wait<1>();
+      else cp_wait<0>();
+      __syncthreads();
+      const C* Xs = ring + (gc & 1) * kStage;
+      const C* Ys = diag ? Xs : Xs + kTB * RL;
+      const C* xa = Xs + (16 * wr + g) * RL + q;
+      const C* yb = Ys + (32 * wc + g) * RL + q;
+#pragma unroll
+      for (int s = 0; s < kChunk / 4; ++s) {
+        const C a0 = xa[4 * s], a1 = xa[8 * RL + 4 * s];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const C bb = yb[8 * n * RL + 4 * s];
+          mma16_f64(cr[n], a0.x, a1.x, bb.x);
+          mma16_f64(cr[n], a0.y, a1.y, bb.y);
+          mma16_f64(ci[n], a0.y, a1.y, bb.x);
+          mma16_f64(ci[n], -a0.x, -a1.x, bb.y);
         }
       }
+      __syncthreads();
+      if (gc + 2 < nchunk) issue(gc + 2);
     }
-    cluster.sync();
+    CLK_MARK(4)
+    stage_tile();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 16 * wr + g + 8 * h, k = 32 * wc + 8 * n + 2 * q + e;
+          if (live(i, k)) {
+            C v = Cs[i * LD + k];
+            v.x -= cr[n][2 * h + e];
+            v.y -= ci[n][2 * h + e];
+            put(i, k, v);
+          }
+        }
+  } else {
+    // thread (ty, tx): rows ty + 16 u, columns tx + 16 v of the tile
+    const int ty = tid >> 4, tx = tid & 15;
+    C acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v].x = acc[u][v].y = 0.f;
+#pragma unroll 1
+    for (int gc = 0; gc < nchunk; ++gc) {
+      if (gc + 1 < nchunk) cp_wait<1>();
+      else cp_wait<0>();
+      __syncthreads();
+      const C* Xs = ring + (gc & 1) * kStage;
+      const C* Ys = diag ? Xs : Xs + kTB * RL;
+#pragma unroll 4
+      for (int c = 0; c < kChunk; ++c) {
+        C li[4], lk[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) li[u] = Xs[(ty + 16 * u) * RL + c];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) lk[v] = Ys[(tx + 16 * v) * RL + c];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) fma_mul_conj(acc[u][v], li[u], lk[v]);
+      }
+      __syncthreads();
+      if (gc + 2 < nchunk) issue(gc + 2);
+    }
+    CLK_MARK(4)
+    stage_tile();
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = ty + 16 * u, k = tx + 16 * v;
+        if (live(i, k)) {
+          C w = Cs[i * LD + k];
+          w.x -= acc[u][v].x;
+          w.y -= acc[u][v].y;
+          put(i, k, w);
+        }
+      }
+  }
+  if (diag && tid < ni) {      // y2 -= L21 y1 on this tile's rows (L2)
+    const C* pr = A + tri_off(I + tid) + j0;
+    const C* y1 = x + b * M + j0;
+    C v = (first ? rhs : x)[b * M + I + tid];
+#pragma unroll 8
+    for (int c = 0; c < depth; ++c) sub_mul(v, pr[c], y1[c]);
+    x[b * M + I + tid] = v;
+  }
+  CLK_MARK(5)
+  if (next) {                  // factor the next panel's diagonal block
+    __syncthreads();
+    auto row = [&](int r) -> C* { return ring + r * LD; };
+    panel_steps<T>(row, ni, 0, rd, true, nan_mode);
+    CLK_MARK(2)
+    diag_finish<T>(row, ni, I, rd, A, dw + b * M, wk + b * kTB, x + b * M,
+                   x + b * M);
     CLK_MARK(3)
   }
+  TCLK_FLUSH
+}
 
-  // every rank's failure flag to rank 0; the others leave after that
-  if (q == 0 && tid == 0) {
-    int f = 0;
-    for (int r = 0; r < nc; ++r) f |= *cluster.map_shared_rank(flag, r);
-    *flag = f;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_tiled_backward(typename Cplx<T>::type* __restrict__ x,
+                    const typename Cplx<T>::type* __restrict__ Lw,
+                    T* __restrict__ dw, int M, int u, int nan_mode) {
+  using C = typename Cplx<T>::type;
+  __shared__ __align__(16) C Ld[kTB * (kTB + 1) / 2];   // diagonal block
+  __shared__ C part[kThreads / kTB][kTB];
+  const int c = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nbk = (M + kTB - 1) / kTB;
+  const int k0 = kTB * c, nkc = min(kTB, M - k0);
+  const C zero = {T(0), T(0)};
+  C* y = x + b * M;
+  const C* A = Lw + b * tri_off(M);
+  T* dg = dw + b * M;
+  CLK_START
+  if (c == u) {              // staged while the update below runs
+    for (int r = warp; r < nkc; r += kWarps)
+      for (int k = lane; k <= r; k += 32)
+        __pipeline_memcpy_async(Ld + tri_off(r) + k,
+                                A + tri_off(k0 + r) + k0 + k, sizeof(C));
+    __pipeline_commit();
   }
-  cluster.sync();
-  if (q != 0) {
-    CLK_FLUSH
-    return;
+  if (u + 1 < nbk) {
+    // x[k] -= sum_j conj(L[j, k]) x[j] over block u + 1's rows j, for the
+    // chunk's k: row group jg takes rows jg, jg + 4, ..; groups in order
+    const int s0 = kTB * (u + 1), ns = min(kTB, M - s0);
+    const int kk = tid % kTB, jg = tid / kTB;
+    C acc = zero;
+    if (kk < nkc) {
+#pragma unroll 4
+      for (int j = jg; j < ns; j += kThreads / kTB)
+        add_mul_conj(acc, y[s0 + j], A[tri_off(s0 + j) + k0 + kk]);
+    }
+    part[jg][kk] = acc;
+    __syncthreads();
+    if (tid < nkc) {
+      C v = y[k0 + tid];
+#pragma unroll
+      for (int r = 0; r < kThreads / kTB; ++r) {
+        v.x -= part[r][tid].x;
+        v.y -= part[r][tid].y;
+      }
+      y[k0 + tid] = v;
+    }
   }
-  backward<T, true, true>(A, dg, y, M);
-  CLK_MARK(5)
-  if (*flag != 0) {
-    const C cnan = {nan_t<T>(), nan_t<T>()};
-    for (int i = tid; i < M; i += kThreads) {
-      y[i] = cnan;
-      dg[i] = nan_t<T>();
+  if (c == u) {              // L_uu^H x_u = y_u: lane l holds rows l, l + 32
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (warp == 0) {
+      C v0 = lane < nkc ? y[k0 + lane] : zero;
+      C v1 = lane + 32 < nkc ? y[k0 + lane + 32] : zero;
+      // 1 / L[r, r] of the lane's rows, ahead of the serial loop
+      const int l1 = lane + 32;
+      const T inv0 = lane < nkc ? T(1) / Ld[tri_off(lane) + lane].x : T(1);
+      const T inv1 = l1 < nkc ? T(1) / Ld[tri_off(l1) + l1].x : T(1);
+      for (int r = nkc - 1; r >= 0; --r) {
+        const C* lr = Ld + tri_off(r);
+        C xr;
+        if (r < 32) {
+          if (lane == r) scale(v0, inv0);
+          xr = shfl(v0, r);
+        } else {
+          if (lane == r - 32) scale(v1, inv1);
+          xr = shfl(v1, r - 32);
+        }
+        // L^H[l, r] = conj(L[r, l])
+        if (lane < r) sub_mul_conj(v0, xr, lr[lane]);
+        if (lane + 32 < r) sub_mul_conj(v1, xr, lr[lane + 32]);
+      }
+      if (lane < nkc) y[k0 + lane] = v0;
+      if (lane + 32 < nkc) y[k0 + lane + 32] = v1;
+    }
+  }
+  if (u == 0 && nan_mode) {  // this block is its system's last
+    __syncthreads();
+    int bad = 0;
+    for (int i = tid; i < M; i += kThreads) bad |= !(dg[i] == dg[i]);
+    if (__syncthreads_or(bad)) {
+      const C cnan = {nan_t<T>(), nan_t<T>()};
+      for (int i = tid; i < M; i += kThreads) {
+        y[i] = cnan;
+        dg[i] = nan_t<T>();
+      }
     }
   }
   CLK_MARK(6)
-  CLK_FLUSH
+  TCLK_FLUSH
 }
 
 // Both substitutions with a kept factor.  kMode 0 (the factor's resident
@@ -1025,146 +1320,98 @@ int prepare_all() {
   if (g != cudaSuccess) return (int)g;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (g_prepared[dev].load(std::memory_order_acquire)) return 0;
-  int e = prepare(chol_factor_solve_kernel<float, true>);
-  if (!e) e = prepare(chol_factor_solve_kernel<float, false>);
-  if (!e) e = prepare(chol_factor_solve_kernel<double, true>);
-  if (!e) e = prepare(chol_factor_solve_kernel<double, false>);
-  if (!e) e = prepare(chol_cluster_kernel<float, true>);
-  if (!e) e = prepare(chol_cluster_kernel<float, false>);
-  if (!e) e = prepare(chol_cluster_kernel<double, true>);
-  if (!e) e = prepare(chol_cluster_kernel<double, false>);
+  int e = prepare(chol_factor_solve_kernel<float>);
+  if (!e) e = prepare(chol_factor_solve_kernel<double>);
   if (!e) e = prepare(chol_subst_kernel<float, 0>);
   if (!e) e = prepare(chol_subst_kernel<float, 1>);
   if (!e) e = prepare(chol_subst_kernel<float, 2>);
   if (!e) e = prepare(chol_subst_kernel<double, 0>);
   if (!e) e = prepare(chol_subst_kernel<double, 1>);
   if (!e) e = prepare(chol_subst_kernel<double, 2>);
+  if (!e) e = prepare(chol_tiled_diag0<float>);
+  if (!e) e = prepare(chol_tiled_diag0<double>);
+  if (!e) e = prepare(chol_tiled_panel<float>);
+  if (!e) e = prepare(chol_tiled_panel<double>);
+  if (!e) e = prepare(chol_tiled_update<float>);
+  if (!e) e = prepare(chol_tiled_update<double>);
   if (!e) g_prepared[dev].store(1, std::memory_order_release);
   return e;
 }
 
-enum Path { kResidentPath = 0, kGlobalPath = 1, kClusterPath = 2,
-            kSlabPath = 3 };
+enum Path { kResidentPath = 0, kTiledPath = 1 };
 
 // Routing, by measurement (tools/torch_chol_route.py on an NVIDIA H100 80GB
-// HBM3 at 700.00 W): the fused factor + solve ("nan" rule, no factor kept)
-// on each path that fits, ms, with cuSOLVER's route beside it:
-//   type  B x M       global  cl. C=2  C=4     C=8     slab    cuSOLVER
-//   c64   512 x 194      0.97    1.65    2.67    4.48    4.38    1.61
-//   c64   512 x 258      1.72    2.68    4.06    6.33    6.32    2.69
-//   c64   512 x 386      4.80    6.42    8.09   12.06   12.38    5.99
-//   c64   256 x 514      4.80    6.44    7.53   10.16   11.01    5.93
-//   c64   256 x 642      8.77   11.29   12.85   15.78   18.57    9.53
-//   c64   128 x 770      9.18    9.10   11.02   12.38   16.63    7.78
-//   c64    64 x 770      8.29    5.93    6.85    6.84    9.37    4.88
-//   c64    32 x 1026    17.88   10.11    8.33    8.55   12.25    5.74
-//   c64    27 x 1294    33.48   17.32   11.62   10.20   16.09    8.12
-//   c64    16 x 1294    33.12   16.66   10.34    8.80   13.14    6.51
-//   c64    11 x 1950        -   48.59   27.52   18.22   32.94   11.48
-//   c64     8 x 1950        -   48.21   27.03   17.04   30.27    9.53
-//   c128  512 x 194      1.37    2.08    3.09    5.14    5.03    2.64
-//   c128  512 x 258      2.85    3.71    4.64    7.42    7.34    4.68
-//   c128  256 x 290      1.96    2.41    3.06    4.58    4.57    3.16
-//   c128  256 x 386      4.17    4.63    5.48    7.24    7.39    5.72
-//   c128  128 x 514      4.64    4.68    6.01    6.91    7.53    5.78
-//   c128  128 x 642      8.53    8.33   10.34   11.74   13.09    9.27
-//   c128   82 x 770         -   10.54   11.28   12.27   14.01    9.56
-//   c128   64 x 770         -    8.11   10.43    9.88   11.34    7.87
-//   c128   32 x 1026        -   12.94   11.22   12.59   14.84    8.68
-//   c128   27 x 1294        -   22.93   16.20   15.28   18.20   12.66
-//   c128   16 x 1294        -   21.10   13.50   12.14   14.45    9.33
-//   c128   11 x 1950        -       -   36.95   25.33   30.70   17.31
-//   c128    8 x 1950        -       -   35.28   22.97   27.25   15.14
-//   c128    2 x 6146        -       -       -  458.09  593.39   78.03
-// (c64 2 x 6146: C=4 634.57, C=8 333.97, slab 790.98, cuSOLVER 45.98.)
-// Unrolling the global path's panel staging afterwards took another 1-5%
-// off its times at M = 194-642 (an A/B in one run on the same card).
-// The rule: the resident path wherever the triangle fits; the global path
-// wherever its panel fits, except complex64 past M = 706 (the cluster path
-// ties it at 128 x 770 and wins from 64 x 770 on); the cluster path with
-// C = 2 up to M = 770, 4 up to 1026, 8 above; past C = 8's capacity the
-// slab path (8 blocks).
-constexpr int kGlobalTopC64 = 706;
-
-template <typename T>
-int cluster_size(int M) {
-  int c = M <= 770 ? 2 : M <= 1026 ? 4 : kMaxCluster;
-  while (c < kMaxCluster && cluster_smem_bytes<T>(M, c, true) > kSmemMax)
-    c *= 2;
-  return c;
-}
-
+// HBM3 at 700.00 W; the table is in PERF.md): the resident path wherever
+// the triangle fits (one block a system wins there), the tiled path above.
 template <typename T>
 int path_of(int M) {
   if (M <= 0) return -1;
-  if (smem_bytes<T>(M, true) <= kSmemMax) return kResidentPath;
-  if (smem_bytes<T>(M, false) <= kSmemMax &&
-      (sizeof(T) == 8 || M <= kGlobalTopC64))
-    return kGlobalPath;
-  if (cluster_smem_bytes<T>(M, kMaxCluster, true) <= kSmemMax)
-    return kClusterPath;
-  return kSlabPath;
+  return smem_bytes<T>(M) <= kSmemMax ? kResidentPath : kTiledPath;
 }
 
-template <typename T, bool kStaged>
-int launch_cluster(const void* R, const void* rhs, void* x, void* L, void* d,
-                   int B, int M, int nan_mode, int csize,
-                   cudaStream_t stream) {
+// The tiled path's launch sequence (chol_plan.h tiled_schedule), over the
+// systems in groups of at most kMaxGridY (the grids' y extent); stops at
+// the first launch that fails.
+template <typename T>
+int launch_tiled(const void* R, const void* rhs, void* x, void* L, void* d,
+                 void* wk, int B, int M, int nan_mode, cudaStream_t s) {
   using C = typename Cplx<T>::type;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)B * (unsigned)csize);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = cluster_smem_bytes<T>(M, csize, kStaged);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, chol_cluster_kernel<T, kStaged>,
-                                 (const C*)R, (const C*)rhs, (C*)x, (C*)L,
-                                 (T*)d, M, nan_mode);
+  using chol_plan::Launch;
+  for (int b0 = 0; b0 < B; b0 += chol_plan::kMaxGridY) {
+    const int nb = min(chol_plan::kMaxGridY, B - b0);
+    const C* Rg = (const C*)R + (long long)b0 * M * M;
+    const C* rg = (const C*)rhs + (long long)b0 * M;
+    C* xg = (C*)x + (long long)b0 * M;
+    C* Lg = (C*)L + (long long)b0 * tri_off(M);
+    T* dg = (T*)d + (long long)b0 * M;
+    T* wg = (T*)wk + (long long)b0 * kTB;
+    const int e = chol_plan::tiled_schedule(M, [&](const Launch& l) {
+      const dim3 grid(l.blocks, nb);
+      switch (l.kind) {
+        case chol_plan::kDiag0:
+          chol_tiled_diag0<T><<<nb, kThreads, tiled_panel_smem<T>(), s>>>(
+              Rg, rg, xg, Lg, dg, wg, M, nan_mode);
+          break;
+        case chol_plan::kPanel:
+          chol_tiled_panel<T><<<grid, kThreads, tiled_panel_smem<T>(), s>>>(
+              Rg, Lg, wg, M, l.p * kTB);
+          break;
+        case chol_plan::kUpdate:
+          chol_tiled_update<T><<<grid, kThreads, tiled_update_smem<T>(),
+                                 s>>>(Rg, rg, xg, Lg, dg, wg, M, l.p * kTB,
+                                      l.depth, l.col_only, nan_mode);
+          break;
+        default:
+          chol_tiled_backward<T><<<grid, kThreads, 0, s>>>(xg, Lg, dg, M,
+                                                           l.p, nan_mode);
+      }
+      return (int)cudaGetLastError();
+    });
+    if (e) return e;
+  }
+  return 0;
 }
 
 template <typename T>
 int launch_factor_solve(const void* R, const void* rhs, void* x, void* L,
-                        void* d, int B, int M, int nan_mode, int path,
-                        int csize, void* stream) {
+                        void* d, void* wk, int B, int M, int nan_mode,
+                        int path, void* stream) {
   using C = typename Cplx<T>::type;
   if (B <= 0) return 0;
   if (M <= 0) return (int)cudaErrorInvalidValue;
   if (path < 0) path = path_of<T>(M);
-  const bool fits =
-      path == kResidentPath ? smem_bytes<T>(M, true) <= kSmemMax
-      : path == kGlobalPath ? smem_bytes<T>(M, false) <= kSmemMax
-      : path == kClusterPath || path == kSlabPath;
-  if (path == kClusterPath || path == kSlabPath) {
-    if (csize <= 0) csize = path == kSlabPath ? kMaxCluster : cluster_size<T>(M);
-    if (csize < 2 || csize > kMaxCluster) return (int)cudaErrorInvalidValue;
-  }
-  if (!fits || (path == kClusterPath &&
-                cluster_smem_bytes<T>(M, csize, true) > kSmemMax))
-    return (int)cudaErrorInvalidValue;
-  if (path != kResidentPath && L == nullptr) return (int)cudaErrorInvalidValue;
-  if ((path == kClusterPath || path == kSlabPath) && d == nullptr)
+  const bool fits = path == kResidentPath ? smem_bytes<T>(M) <= kSmemMax
+                                          : path == kTiledPath;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  if (path == kTiledPath && (L == nullptr || d == nullptr || wk == nullptr))
     return (int)cudaErrorInvalidValue;
   const int e = prepare_all();
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (path == kClusterPath)
-    return launch_cluster<T, true>(R, rhs, x, L, d, B, M, nan_mode, csize, s);
-  if (path == kSlabPath)
-    return launch_cluster<T, false>(R, rhs, x, L, d, B, M, nan_mode, csize, s);
-  const size_t smem = smem_bytes<T>(M, path == kResidentPath);
-  if (path == kResidentPath) {
-    chol_factor_solve_kernel<T, true><<<B, kThreads, smem, s>>>(
-        (const C*)R, (const C*)rhs, (C*)x, (C*)L, (T*)d, M, nan_mode);
-  } else {
-    chol_factor_solve_kernel<T, false><<<B, kThreads, smem, s>>>(
-        (const C*)R, (const C*)rhs, (C*)x, (C*)L, (T*)d, M, nan_mode);
-  }
+  if (path == kTiledPath)
+    return launch_tiled<T>(R, rhs, x, L, d, wk, B, M, nan_mode, s);
+  chol_factor_solve_kernel<T><<<B, kThreads, smem_bytes<T>(M), s>>>(
+      (const C*)R, (const C*)rhs, (C*)x, (C*)L, (T*)d, M, nan_mode);
   return (int)cudaGetLastError();
 }
 
@@ -1215,42 +1462,48 @@ int chol_phase_clocks(unsigned long long* out) {
 #endif
 }
 
+// The same for the tiled path's kernels (g_tclk).
+int chol_tiled_clocks(unsigned long long* out) {
+#ifdef CHOL_PHASE_CLOCKS
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_tclk, sizeof(g_tclk));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {0};
+  return (int)cudaMemcpyToSymbol(g_tclk, zero, sizeof(g_tclk));
+#else
+  (void)out;
+  return -1;
+#endif
+}
+
 // Which path a system of order M takes: 0 resident (triangle in shared
-// memory), 1 global (device-memory workspace, panel staged), 2 cluster
-// (one system over a cluster, each rank staging its own panel rows), 3 slab
-// (the cluster kernel with nothing staged); -1 for M < 1.
+// memory), 1 tiled (a sequence of launches spreading each system over the
+// card); -1 for M < 1.
 int chol_path(int M, int c128) {
   return c128 ? path_of<double>(M) : path_of<float>(M);
 }
 
-// The cluster size the cluster path (2) or the slab path (3) takes at
-// order M when the caller leaves it to the kernel (csize 0).
-int chol_cluster_size(int M, int c128, int path) {
-  if (path == kSlabPath) return kMaxCluster;
-  return c128 ? cluster_size<double>(M) : cluster_size<float>(M);
-}
-
 // R: [B, M, M], rhs / x: [B, M] complex64.  L: [B, M(M+1)/2] packed factor
-// out (may be NULL on the resident path; required on the others, where it
-// is the workspace), d: [B, M] float32 real diagonal out (may be NULL on
-// the resident and global paths; required on the cluster and slab paths).
-// nan_mode: 0 guard, 1 NaN on a failed pivot.  path: -1 for chol_path's
-// choice, or 0-3 to ask for one (refused where it does not fit); csize: the
-// cluster size of paths 2 and 3 (0: the kernel's choice).  Returns the
-// cudaError_t of the launch (0 on success).
+// out (may be NULL on the resident path; required on the tiled path, where
+// it is the workspace), d: [B, M] float32 real diagonal out (may be NULL on
+// the resident path; required on the tiled path), wk: [B, 64] float32
+// scratch of the tiled path (NULL on the resident).  nan_mode: 0 guard, 1
+// NaN on a failed pivot.  path: -1 for chol_path's choice, or 0-1 to ask
+// for one (refused where it does not fit).  Returns the cudaError_t
+// of the launch (0 on success; the tiled path's launches stop at the first
+// that fails).
 int chol_factor_solve_c64(const void* R, const void* rhs, void* x, void* L,
-                          void* d, int B, int M, int nan_mode, int path,
-                          int csize, void* stream) {
-  return launch_factor_solve<float>(R, rhs, x, L, d, B, M, nan_mode, path,
-                                    csize, stream);
+                          void* d, void* wk, int B, int M, int nan_mode,
+                          int path, void* stream) {
+  return launch_factor_solve<float>(R, rhs, x, L, d, wk, B, M, nan_mode,
+                                    path, stream);
 }
 
-// The same for complex128 (d float64).
+// The same for complex128 (d and wk float64).
 int chol_factor_solve_c128(const void* R, const void* rhs, void* x, void* L,
-                           void* d, int B, int M, int nan_mode, int path,
-                           int csize, void* stream) {
-  return launch_factor_solve<double>(R, rhs, x, L, d, B, M, nan_mode, path,
-                                     csize, stream);
+                           void* d, void* wk, int B, int M, int nan_mode,
+                           int path, void* stream) {
+  return launch_factor_solve<double>(R, rhs, x, L, d, wk, B, M, nan_mode,
+                                     path, stream);
 }
 
 // x = (L L^H)^-1 rhs with a factor from chol_factor_solve_c64.

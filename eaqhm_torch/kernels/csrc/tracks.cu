@@ -78,9 +78,18 @@
 //   exactly with an fma from the quotient it implies.  Bound: the anchors
 //   read once and the dense outputs written once, against one cos per
 //   (row, column); the float64 build is limited by its FP64 work (cos).
-// - track_srer: one block per group: the masked SRER over the first n_valid
-//   samples, 20 log10(std_det / std(det - s)), mean first and deviation
-//   second as JAX writes it (std_det given, or the masked std of det).
+// - track_srer: the masked SRER over the first n_valid samples,
+//   20 log10(std_det / std(det - s)), mean first and deviation second as
+//   JAX writes it (std_det given, or the masked std of det), in two
+//   launches over (chunk, group) blocks of 256 threads (a chunk of
+//   L / nch samples, nch from the wrapper): the first writes each chunk's
+//   sums, the second each chunk's sums of squared deviations from the mean
+//   of the first's, and the block that finishes a group last (a counter the
+//   first launch sets to 0) sums the chunks in chunk order.  Every sum is
+//   taken in an order fixed by the shapes alone, so the SRER is the same bit
+//   for bit from run to run.  Bound: det and s read (twice: the second pass
+//   mostly from L2); at the main paths' lengths a launch's latency sets the
+//   time.
 //
 // Every product and sum rounds on its own as the torch ops (and JAX) round
 // them: the library is built with -fmad=false; cos, fmod, rint, log10 and
@@ -97,6 +106,7 @@ namespace {
 using tracks_plan::align16;
 using tracks_plan::kPiece;
 using tracks_plan::kSplineWarps;
+using tracks_plan::kSrerThreads;
 using tracks_plan::kSynthMaxSmem;
 using tracks_plan::kSynthRows;
 using tracks_plan::kSynthThreads;
@@ -109,7 +119,6 @@ constexpr uint8_t kEnd = 62;        // a run's last anchor
 constexpr int kChunk = 8;           // rows a walk loads ahead
 constexpr int kAgg = 5;             // A_f, B_f, A_b, B0, B1 of a tile
 constexpr int kMaxTiers = 12;
-constexpr int kSrerThreads = 1024;
 
 // Profiling build (-DTRACKS_PHASE_CLOCKS, tools/bench_tracks_phases.py
 // --clocks): clock64 cycles summed per (kernel, phase) over the blocks of a
@@ -1149,36 +1158,81 @@ __device__ __forceinline__ float log10_<float>(float x) { return log10f(x); }
 template <>
 __device__ __forceinline__ double log10_<double>(double x) { return log10(x); }
 
-// the masked std over the first nv samples of x - y (y null: of x)
-template <typename T>
-__device__ T masked_std(const T* x, const T* y, long long nv, T nf, T* red) {
-  T s = T(0);
-  for (long long l = threadIdx.x; l < nv; l += blockDim.x)
-    s = s + (y ? x[l] - y[l] : x[l]);
-  const T mu = block_sum(s, red) / nf;
-  s = T(0);
-  for (long long l = threadIdx.x; l < nv; l += blockDim.x) {
-    const T d = (y ? x[l] - y[l] : x[l]) - mu;
-    s = s + d * d;
-  }
-  return sqrt(block_sum(s, red) / nf);
-}
-
+// The masked SRER in two passes over blocks (chunk c, group g); part
+// [G][nch][4]: the chunk's sums of det - s and of det (pass 0), of their
+// squared deviations from the means (pass 1); cnt [G] counts the blocks of
+// a group done with pass 1.
 template <typename T>
 __global__ void __launch_bounds__(kSrerThreads)
 track_srer(const T* det, const T* s, const long long* lens,
-           const T* std_det, T* srer, long long L, long long det_sg,
-           long long n_valid) {
+           const T* std_det, T* srer, T* part, int* cnt, long long L,
+           long long det_sg, long long n_valid, int pass) {
   __shared__ T red[kSrerThreads / 32];
-  const int g = blockIdx.x;
+  __shared__ int last;
+  const int c = blockIdx.x, nch = gridDim.x;
+  const long long g = blockIdx.y;
   long long nv = lens ? lens[g] : n_valid;
-  nv = nv < L ? nv : L;
+  nv = nv < L ? (nv > 0 ? nv : 0) : L;
   const T nf = T((double)(nv > 1 ? nv : 1));
+  const long long chunk = (L + nch - 1) / nch;
+  const long long l0 = c * chunk, l1 = min(l0 + chunk, nv);
   const T* dg = det + g * det_sg;
-  const T sd = masked_std(dg, s + g * L, nv > 0 ? nv : 0, nf, red);
-  const T ref = std_det ? *std_det : masked_std(dg, (const T*)nullptr,
-                                                nv > 0 ? nv : 0, nf, red);
-  if (threadIdx.x == 0) srer[g] = T(20) * log10_(ref / sd);
+  const T* sg = s + g * L;
+  const bool own_std = std_det == nullptr;
+  T* pg = part + g * nch * 4;
+  T sr = T(0), sd = T(0);
+  if (pass == 0) {
+    for (long long l = l0 + threadIdx.x; l < l1; l += kSrerThreads) {
+      sr = sr + (dg[l] - sg[l]);
+      if (own_std) sd = sd + dg[l];
+    }
+    sr = block_sum(sr, red);
+    if (own_std) sd = block_sum(sd, red);
+    if (threadIdx.x == 0) {
+      pg[4 * c] = sr;
+      pg[4 * c + 1] = sd;
+      if (c == 0) cnt[g] = 0;
+    }
+    return;
+  }
+  // the means, from every chunk's sums in a fixed order
+  T mr = T(0), md = T(0);
+  for (int k = threadIdx.x; k < nch; k += kSrerThreads) {
+    mr = mr + pg[4 * k];
+    if (own_std) md = md + pg[4 * k + 1];
+  }
+  mr = block_sum(mr, red) / nf;
+  if (own_std) md = block_sum(md, red) / nf;
+  for (long long l = l0 + threadIdx.x; l < l1; l += kSrerThreads) {
+    const T r = (dg[l] - sg[l]) - mr;
+    sr = sr + r * r;
+    if (own_std) {
+      const T e = dg[l] - md;
+      sd = sd + e * e;
+    }
+  }
+  sr = block_sum(sr, red);
+  if (own_std) sd = block_sum(sd, red);
+  if (threadIdx.x == 0) {
+    pg[4 * c + 2] = sr;
+    pg[4 * c + 3] = sd;
+    __threadfence();
+    last = atomicAdd(cnt + g, 1) == nch - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  sr = sd = T(0);
+  for (int k = threadIdx.x; k < nch; k += kSrerThreads) {
+    sr = sr + __ldcg(pg + 4 * k + 2);
+    if (own_std) sd = sd + __ldcg(pg + 4 * k + 3);
+  }
+  sr = block_sum(sr, red);
+  if (own_std) sd = block_sum(sd, red);
+  if (threadIdx.x == 0) {
+    const T ref = own_std ? sqrt(sd / nf) : *std_det;
+    srer[g] = T(20) * log10_(ref / sqrt(sr / nf));
+  }
 }
 
 // ---------------------------------------------------------------- launches
@@ -1245,12 +1299,16 @@ int synth_launch(const long long* desc, const void* M, const void* bump,
 
 template <typename T>
 int srer_launch(const void* det, const void* s, const void* lens,
-                const void* std_det, void* srer, int G, long long L,
-                long long det_sg, long long n_valid, void* stream) {
-  if (G < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  track_srer<T><<<G, kSrerThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)det, (const T*)s, (const long long*)lens,
-      (const T*)std_det, (T*)srer, L, det_sg, n_valid);
+                const void* std_det, void* srer, void* part, void* cnt,
+                int G, int nch, long long L, long long det_sg,
+                long long n_valid, void* stream) {
+  if (G < 1 || G > 65535 || L < 1 || nch != tracks_plan::srer_chunks(L))
+    return (int)cudaErrorInvalidValue;
+  for (int pass = 0; pass < tracks_plan::kSrerLaunches; ++pass)
+    track_srer<T><<<dim3(nch, G), kSrerThreads, 0, (cudaStream_t)stream>>>(
+        (const T*)det, (const T*)s, (const long long*)lens,
+        (const T*)std_det, (T*)srer, (T*)part, (int*)cnt, L, det_sg,
+        n_valid, pass);
   return (int)cudaGetLastError();
 }
 
@@ -1307,19 +1365,24 @@ int track_synth_f64(const long long* desc, const void* M, const void* bump,
 
 // track_srer (float32 / float64): det [G, L] (row stride det_sg), s [G, L],
 // lens [G] int64 or null (then n_valid for every group), std_det [1] or
-// null (then the masked std of det) -> srer [G].  Returns the cudaError_t.
+// null (then the masked std of det) -> srer [G]; part [G, nch, 4] and cnt
+// [G] int32 are scratch, nch the chunks a group (tracks_plan.h
+// srer_chunks(L), checked; two launches of nch x G blocks).  Returns the
+// cudaError_t.
 int track_srer_f32(const void* det, const void* s, const void* lens,
-                   const void* std_det, void* srer, int G, long long L,
-                   long long det_sg, long long n_valid, void* stream) {
-  return srer_launch<float>(det, s, lens, std_det, srer, G, L, det_sg,
-                            n_valid, stream);
+                   const void* std_det, void* srer, void* part, void* cnt,
+                   int G, int nch, long long L, long long det_sg,
+                   long long n_valid, void* stream) {
+  return srer_launch<float>(det, s, lens, std_det, srer, part, cnt, G, nch,
+                            L, det_sg, n_valid, stream);
 }
 
 int track_srer_f64(const void* det, const void* s, const void* lens,
-                   const void* std_det, void* srer, int G, long long L,
-                   long long det_sg, long long n_valid, void* stream) {
-  return srer_launch<double>(det, s, lens, std_det, srer, G, L, det_sg,
-                             n_valid, stream);
+                   const void* std_det, void* srer, void* part, void* cnt,
+                   int G, int nch, long long L, long long det_sg,
+                   long long n_valid, void* stream) {
+  return srer_launch<double>(det, s, lens, std_det, srer, part, cnt, G, nch,
+                             L, det_sg, n_valid, stream);
 }
 
 // Sets track_synth's dynamic shared-memory limit (once per device, before

@@ -3,8 +3,9 @@
 // tracks.cu includes this file, and its launchers choose every launch's
 // geometry here.  The same file, compiled alone by the host's C++ compiler
 // (kernels/build.py ``load_host``), exports the plans to Python
-// (``track_spline_plan``, ``track_synth_plan``): ops/tracks.py sizes the
-// spline's scratch and reports blocks a SM from them, and the tests check
+// (``track_spline_plan``, ``track_synth_plan``, ``track_srer_plan``):
+// ops/tracks.py sizes the spline's and the SRER's scratch and reports
+// blocks a SM from them, and the tests check
 // them on a machine without the CUDA toolkit.  Plain C++17; no CUDA.
 #ifndef EAQHM_TRACKS_PLAN_H
 #define EAQHM_TRACKS_PLAN_H
@@ -112,6 +113,15 @@ inline SynthPlan synth_plan(int G, int n, int K, int step, long long L,
   return p;
 }
 
+constexpr int kSrerThreads = 256;      // threads of a track_srer block
+constexpr long long kSrerChunk = 2048; // samples of a block: 8 a thread
+constexpr int kSrerLaunches = 2;       // the sums, then the deviations
+
+// track_srer: the chunks (blocks a group and launch) of L samples a group.
+TRACKS_HD int srer_chunks(long long L) {
+  return L > kSrerChunk ? (int)((L + kSrerChunk - 1) / kSrerChunk) : 1;
+}
+
 }  // namespace tracks_plan
 
 extern "C" {
@@ -125,6 +135,15 @@ int track_spline_plan(int G, int n, int K, long long* out) {
   out[0] = p.R;
   out[1] = p.tiles;
   out[2] = 32 * tracks_plan::kSplineWarps;
+  return 0;
+}
+
+// out[2]: track_srer's chunks a group and its launches, for L >= 1
+// samples a group.
+int track_srer_plan(long long L, long long* out) {
+  if (L < 1) return 1;
+  out[0] = tracks_plan::srer_chunks(L);
+  out[1] = tracks_plan::kSrerLaunches;
   return 0;
 }
 

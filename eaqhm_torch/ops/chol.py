@@ -17,21 +17,19 @@ Two pivot rules (``mode``):
 Bound on an H100: M^3/6 complex multiply-adds per system against M(M+1)/2
 complex reads (one triangle of R), so at the main path's M (130-194) the
 arithmetic sets the floor in both types.  Blocked right-looking updates in
-register tiles (see the source note) on one of four paths, chosen from
-(type, M) by the kernel (``path_for``):
-  "resident"  the triangle in one block's shared memory (complex64
-              M <= 238, complex128 M <= 167);
-  "global"    a device-memory workspace, each panel staged in one block
-              (complex64 up to M = 706, complex128 up to M = 764);
-  "cluster"   one system over a thread-block cluster of 2-8 blocks, each
-              staging its own rows of the panel, the others read through
-              distributed shared memory (up to complex64 M = 12416,
-              complex128 M = 6656);
-  "slab"      the cluster kernel with nothing staged, for every larger M.
-Where "global" and "cluster" both fit (complex64 M <= 1529), the faster on
-an H100 serves (the routing table in the source).  The kernel takes any
-M >= 1 and any B as they are; it fails only where the caller cannot
-allocate its tensors.
+register tiles (see the source note) on one of two paths, chosen from
+(type, M) by the kernel (``path_for``; each wins where it serves, by
+measurement on an H100):
+  "resident"  one launch, the triangle in one block's shared memory
+              (complex64 M <= 238, complex128 M <= 167);
+  "tiled"     each system spread over the card by ``launches_per_call``
+              launches: per 64 columns a panel launch (a block per 64-row
+              tile) and a trailing-update launch (a block per 64 x 64
+              tile), then a backward-substitution launch per 64 rows
+              (every larger M); the schedule is ``kernels/csrc/chol_plan.h``
+              (``tiled_plan``).
+The kernel takes any M >= 1 and any B as they are; it fails only where the
+caller cannot allocate its tensors.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version.  ``chol_solve.launches`` / ``chol_subst.launches``
@@ -45,6 +43,8 @@ counts are safe to update from several threads.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional
 
@@ -55,7 +55,7 @@ from eaqhm_torch.kernels import build
 _SYMBOLS = {torch.complex64: ("chol_factor_solve_c64", "chol_subst_c64"),
             torch.complex128: ("chol_factor_solve_c128", "chol_subst_c128")}
 MODES = ("guard", "nan")
-PATHS = ("resident", "global", "cluster", "slab")
+PATHS = ("resident", "tiled")
 _GUARD = 1e-30
 # The counts below are shared by every thread and updated under _lock; the
 # launches recorded during a CUDA graph capture are kept per thread (_tls).
@@ -183,13 +183,34 @@ def path_for(dtype: torch.dtype, M: int) -> str:
     return PATHS[library().chol_path(M, int(dtype == torch.complex128))]
 
 
-def cluster_size(dtype: torch.dtype, M: int, path: str) -> int:
-    """The thread-block cluster size the "cluster" or "slab" path takes at
-    order M (1 on the one-block paths)."""
-    if path not in ("cluster", "slab"):
-        return 1
-    return library().chol_cluster_size(M, int(dtype == torch.complex128),
-                                       PATHS.index(path))
+class TiledPlan(NamedTuple):
+    """One tiled-path call of B systems as its launcher makes it
+    (kernels/csrc/chol_plan.h ``tiled_schedule``): device launches, blocks
+    of the panel kernels (the first diagonal block's and the panels'), of
+    the trailing updates and of the backward substitution over the call,
+    and the scratch's columns a system."""
+    launches: int
+    panel_blocks: int
+    update_blocks: int
+    backward_blocks: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_plan(M: int, B: int = 1) -> TiledPlan:
+    """The tiled path's plan of a call of B systems of order M >= 1, read
+    from the plan's host build (no CUDA toolkit needed)."""
+    out = (ctypes.c_longlong * 4)()
+    launches = build.load_host("chol_plan").chol_tiled_plan(M, B, out)
+    if launches < 0:
+        raise ValueError(f"chol_solve: no tiled plan for M={M} B={B}")
+    return TiledPlan(launches, *out)
+
+
+def launches_per_call(M: int, path: str, B: int = 1) -> int:
+    """Device launches of one ``chol_solve`` call of B systems of order M
+    on a path: one, or on "tiled" ``tiled_plan``'s."""
+    return tiled_plan(M, B).launches if path == "tiled" else 1
 
 
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
@@ -204,18 +225,16 @@ def _launch(fn_name: str, dev: torch.device, *args) -> None:
 
 
 def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
-               keep_factor: bool = False, path: Optional[str] = None,
-               cluster: int = 0):
+               keep_factor: bool = False, path: Optional[str] = None):
     """Solve R x = rhs for a batch of HPD R: [B, M, M], rhs: [B, M].
 
     Returns x, or (x, Factor) with keep_factor (for ``chol_subst``).  On a
-    CUDA tensor this launches the hand kernel once, counts it in
-    ``chol_solve.launches`` and records (B, M, path, mode, keep_factor) in
-    ``chol_solve.shapes``; on a CPU tensor it runs the plain version.
-    path (one of PATHS) and cluster (the cluster size of "cluster" and
-    "slab", 0 for the kernel's) take another path than ``path_for``'s, to
-    measure one against another; the kernel refuses a path whose shared
-    memory does not fit M.
+    CUDA tensor this launches the hand kernel (``launches_per_call`` device
+    launches), counts the call once in ``chol_solve.launches`` and records
+    (B, M, path, mode, keep_factor) in ``chol_solve.shapes``; on a CPU
+    tensor it runs the plain version.  path (one of PATHS) takes another
+    path than ``path_for``'s, to measure one against another; the kernel
+    refuses a path whose shared memory does not fit M.
     """
     _check(R, rhs)
     _check_mode(mode)
@@ -229,16 +248,19 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
     x = torch.empty_like(rhs)
     if path is None:
         path = path_for(R.dtype, M)
-    L = d = None
+    L = d = wk = None
     if keep_factor or path != "resident":
         L = torch.empty((B, M * (M + 1) // 2), dtype=R.dtype, device=R.device)
-    if keep_factor or path in ("cluster", "slab"):
+    if keep_factor or path == "tiled":
         d = torch.empty((B, M), dtype=R.real.dtype, device=R.device)
+    if path == "tiled":           # the current panel's rsqrt pivots
+        wk = torch.empty((B, tiled_plan(M).scratch), dtype=R.real.dtype,
+                         device=R.device)
     if B:
         _launch(_SYMBOLS[R.dtype][0], R.device, R.data_ptr(), rhs.data_ptr(),
-                x.data_ptr(), None if L is None else L.data_ptr(),
-                None if d is None else d.data_ptr(), B, M,
-                int(mode == "nan"), PATHS.index(path), int(cluster))
+                x.data_ptr(), *(None if t is None else t.data_ptr()
+                                for t in (L, d, wk)), B, M,
+                int(mode == "nan"), PATHS.index(path))
         _count(chol_solve, (B, M, path, mode, keep_factor))
     return (x, Factor(L, d)) if keep_factor else x
 

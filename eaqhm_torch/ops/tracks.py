@@ -32,22 +32,25 @@ them):
                     [G, L] (a0 + 2 sum_k am cos(ph), or the harmonic sum
                     alone with the DC track apart), and with ``dense`` the
                     dense fm and ph.
-``masked_srer`` launches ``track_srer``: per group the SRER over its first
-n_valid samples.  On CPU tensors they run the plain version
+``masked_srer`` launches ``track_srer`` (``srer_plan``: two launches over
+chunks of 2048 samples, the sums, then the squared deviations from the
+means and the SRER): per group the SRER over its first n_valid samples.
+On CPU tensors they run the plain version
 (``*_reference``: the torch ops the port had before the kernels; the tiers
 gathered into the grid first), counted in the entry's ``.plain_calls``.  No
 CUDA call goes to the plain version.  ``spline_plan`` and ``synth_plan``
-read the kernels' launch geometry, which the launchers choose themselves
+and ``srer_plan`` read the kernels' launch geometry, which the launchers
+choose (or check) themselves
 (kernels/csrc/tracks_plan.h, built for the host by ``build.load_host``).
 
 ``track_spline.launches`` / ``track_synth.launches`` /
-``track_srer.launches`` count calls (track_spline's two launches count as
-one) and ``.shapes`` record per call (G, n, K, step, type) / (G, n, K, L,
-step, fs, (dc, anchors, dense, acc given, voiced given), type) / (G, L,
-per-group lengths, type); a launch recorded into a CUDA graph counts at
-each replay (``take_captured``, ``count_replay``, ``.replayed``), as in
-``ops.fit``.  The launches allocate their outputs and scratch with torch
-(graph-safe) and never synchronize.
+``track_srer.launches`` count calls (track_spline's two launches, and
+track_srer's, count as one) and ``.shapes`` record per call (G, n, K, step,
+type) / (G, n, K, L, step, fs, (dc, anchors, dense, acc given, voiced
+given), type) / (G, L, per-group lengths, type); a launch recorded into a
+CUDA graph counts at each replay (``take_captured``, ``count_replay``,
+``.replayed``), as in ``ops.fit``.  The launches allocate their outputs and
+scratch with torch (graph-safe) and never synchronize.
 """
 from __future__ import annotations
 
@@ -339,17 +342,35 @@ def synth_call(src, G, n, K, dt, dev, M, step, fs, length, *, dc, anchors,
     return st, f"track_synth_{_real(dt)}", args, ins + outs
 
 
+class SrerPlan(NamedTuple):
+    chunks: int     # blocks a group and launch
+    launches: int   # device launches of a call
+
+
+@functools.lru_cache(maxsize=256)
+def srer_plan(L: int) -> SrerPlan:
+    """track_srer's chunks a group of L samples and its launches a call
+    (kernels/csrc/tracks_plan.h ``srer_chunks``)."""
+    out = (ctypes.c_longlong * 2)()
+    if _plans().track_srer_plan(int(L), out) != 0:
+        raise ValueError(f"tracks stage: no SRER plan for L={L}")
+    return SrerPlan(*out)
+
+
 def srer_call(det, s, lens, std_det, n_valid):
-    """One track_srer launch without the launch: (srer [G], the symbol,
+    """One track_srer call without the launch: (srer [G], the symbol,
     its arguments but the stream, the tensors to keep alive)."""
     G, L = s.shape
     dt = s.dtype
+    nch = srer_plan(L).chunks
     srer = torch.empty(G, dtype=dt, device=s.device)
+    part = torch.empty((G, nch, 4), dtype=dt, device=s.device)
+    cnt = torch.empty(G, dtype=torch.int32, device=s.device)
     keep = [det, s, None if lens is None else lens.to(torch.int64)
             .contiguous(), None if std_det is None else std_det.to(dt)
-            .reshape(1).contiguous(), srer]
+            .reshape(1).contiguous(), srer, part, cnt]
     ptr = [0 if t is None else t.data_ptr() for t in keep]
-    args = (*ptr, G, L, det.stride(0), int(n_valid or 0))
+    args = (*ptr, G, nch, L, det.stride(0), int(n_valid or 0))
     return srer, f"track_srer_{_real(dt)}", args, keep
 
 

@@ -151,7 +151,7 @@ def test_unpack_factor_reads_the_packed_layout():
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-4),
                                        (torch.complex128, 1e-10)])
 def test_cuda_kernel_matches_plain_version(dtype, tol, mode):
-    """Both paths (M = 258 takes the global one in both types, M = 194 in
+    """Both paths (M = 258 takes the tiled one in both types, M = 194 in
     complex128), the fused solve and the kept factor's substitution."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -191,30 +191,17 @@ def test_cuda_nan_mode_marks_exactly_the_failed_systems():
 @pytest.mark.gpu
 def test_cuda_path_boundaries():
     """The largest resident orders (the triangle, y, rd, 1 / diag and a
-    flag in 232,448 bytes of shared memory), the global path's capacity
-    (the staged M x 17 panel; complex64 leaves it for the cluster path past
-    M = 706, by measurement), the cluster path's at 8 blocks (each staging
-    ceil(M / 16 / 8) 16-row slots) and the slab path past it; a path for
-    every order from 1 to 6146 in both types."""
+    flag in 232,448 bytes of shared memory), the tiled path above them; a
+    path for every order from 1 to 6657 in both types."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    assert chol.path_for(torch.complex64, 238) == "resident"
-    assert chol.path_for(torch.complex64, 239) != "resident"
-    assert chol.path_for(torch.complex128, 167) == "resident"
-    assert chol.path_for(torch.complex128, 168) != "resident"
-    assert chol.path_for(torch.complex64, 706) == "global"     # measured
-    assert chol.path_for(torch.complex64, 707) == "cluster"
-    assert chol.path_for(torch.complex128, 764) == "global"
-    for dt, top, slab in ((torch.complex64, 1529, 12417),
-                          (torch.complex128, 764, 6657)):
-        assert chol.path_for(dt, top + 1) == "cluster"
-        assert chol.path_for(dt, slab - 1) == "cluster"
-        assert chol.path_for(dt, slab) == "slab"
-        for M in (765, 1530, 6146):
-            assert chol.path_for(dt, M) in chol.PATHS
+    for dt, top in ((torch.complex64, 238), (torch.complex128, 167)):
+        assert chol.path_for(dt, 1) == "resident"
+        assert chol.path_for(dt, top) == "resident"
+        assert chol.path_for(dt, top + 1) == "tiled"
         assert all(chol.path_for(dt, M) in chol.PATHS
-                   for M in range(1, 6147))
-        assert chol.cluster_size(dt, slab, "slab") == 8
+                   for M in range(1, 6658))
+        assert chol.path_for(dt, 1 << 16) == "tiled"
     with pytest.raises(ValueError):
         chol.path_for(torch.complex64, 0)
 
@@ -268,17 +255,16 @@ def test_cuda_wide_orders_match_plain_version(dtype, tol, mode):
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-5),
                                        (torch.complex128, 1e-12)])
 def test_cuda_every_path_at_small_orders(dtype, tol):
-    """Each path asked for by name at orders where it fits, every cluster
-    size: ragged last blocks, fewer row blocks than ranks, one row."""
+    """Each path asked for by name at orders where it fits: ragged last
+    panels, fewer rows than a panel, one row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     for M in (1, 5, 37, 130, 258):
         R, b = _hpd_cuda(3, M, dtype, seed=100 + M)
         for mode in chol.MODES:
-            _against_plain(R, b, mode, tol, path="global")
-            for c in (2, 4, 8):
-                _against_plain(R, b, mode, tol, path="cluster", cluster=c)
-                _against_plain(R, b, mode, tol, path="slab", cluster=c)
+            for path in chol.PATHS:
+                if path == "tiled" or M <= 167:
+                    _against_plain(R, b, mode, tol, path=path)
     with pytest.raises(RuntimeError):
         R, b = _hpd_cuda(1, 800, dtype, seed=1)
         chol.chol_solve(R, b, path="resident")
@@ -286,26 +272,28 @@ def test_cuda_every_path_at_small_orders(dtype, tol):
 
 @pytest.mark.gpu
 def test_cuda_slab_path_past_the_cluster_capacity():
+    """M = 6657, the widest order the wide phase holds (past what one
+    cluster of blocks could stage), on the tiled path, both rules."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    M = next(M for M in range(6600, 6700)
-             if chol.path_for(torch.complex128, M) == "slab")
+    M = 6657
     R, b = _hpd_cuda(2, M, torch.complex128, seed=M)
     for mode in chol.MODES:
         _against_plain(R, b, mode, 1e-12)
-        assert chol.chol_solve.shapes[-1][2] == "slab"
+        assert chol.chol_solve.shapes[-1][2] == "tiled"
 
 
 @pytest.mark.gpu
 def test_cuda_nan_mode_marks_exactly_the_failed_systems_at_wide_orders():
     """A negative diagonal entry fails the factorization at that column: in
-    the second row block (rank 1 of a cluster) and in the last one; the
-    kernel's "nan" rule marks exactly the systems cuSOLVER fails on, on the
-    cluster and slab paths."""
+    the second 16-column step of the first panel and in the last panel;
+    the kernel's "nan" rule marks exactly the systems cuSOLVER fails on, on
+    the tiled path (also asked for by name below its route)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     for dt in (torch.complex64, torch.complex128):
-        for M, kw in ((1294, {}), (1950, {}), (770, {"path": "slab"})):
+        for M, kw in ((1294, {}), (1950, {}), (700, {}),
+                      (150, {"path": "tiled"})):
             R, b = _hpd_cuda(5, M, dt, seed=M + 1)
             R[1, 17, 17] = -1.0
             R[3, M - 5, M - 5] = -1.0
@@ -316,3 +304,51 @@ def test_cuda_nan_mode_marks_exactly_the_failed_systems_at_wide_orders():
             assert torch.equal(bad, torch.isnan(xr).any(dim=1))
             assert torch.isnan(f.d[[1, 3]]).all()
             assert torch.isfinite(x[[0, 2, 4]]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-5),
+                                       (torch.complex128, 1e-12)])
+def test_cuda_tiled_path_at_its_boundaries(dtype, tol):
+    """The tiled path asked for by name around its 64-column panels and
+    16-column steps (one system and several, up to M = 300): the fused
+    solve with and without the kept factor, the substitution with the kept
+    factor, and the factor itself, in both rules."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for B, M in ((1, 1), (3, 15), (3, 16), (3, 17), (2, 63), (2, 64),
+                 (2, 65), (2, 127), (2, 128), (2, 129), (5, 300)):
+        R, b = _hpd_cuda(B, M, dtype, seed=200 + M)
+        for mode in chol.MODES:
+            f = _against_plain(R, b, mode, tol, path="tiled")
+            assert chol.chol_solve.shapes[-1][2] == "tiled"
+            Lr = chol.chol_factor_reference(R, mode)
+            assert (chol.unpack_factor(f) - Lr).abs().max().item() < tol * 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cuda_tiled_path_in_a_cuda_graph(dtype):
+    """A tiled call captured into a CUDA graph: 3 ceil(M / 64) - 1 kernel
+    nodes (chol.launches_per_call), each replay the eager call's x bit for
+    bit, and a replay after R and b change solves the new systems."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from torch_graph_nodes import captured, kernel_nodes
+    M = 300
+    R, b = _hpd_cuda(4, M, dtype, seed=9)
+    x0 = chol.chol_solve(R, b, mode="nan", path="tiled")
+    graph, x = captured(lambda: chol.chol_solve(R, b, mode="nan",
+                                                path="tiled"))
+    chol.take_captured()
+    assert kernel_nodes(graph) == chol.launches_per_call(M, "tiled") == 14
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0)
+    R2, b2 = _hpd_cuda(4, M, dtype, seed=10)
+    R.copy_(R2)
+    b.copy_(b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, chol.chol_solve(R2, b2, mode="nan", path="tiled"))

@@ -660,3 +660,52 @@ def test_cuda_synth_blocks_of_several_slices(dtype):
         errs, flips, _ = stage_errors(got, want, step, n, flip_hz=1e-3 * fs)
         assert flips == 0 and max(errs.values()) <= TRACK_TOL[dtype], (
             kw, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_track_srer_on_many_blocks(dtype):
+    """track_srer over many chunks a group (the stress length, 470 chunks
+    of 2048 samples; 33 chunks; a batch of groups with ragged lengths; a
+    length under one chunk; lengths past L and of 0 and 1): bitwise equal
+    across two calls and in a CUDA graph's replay, equal to the plain
+    version to rounding, two device launches a call."""
+    _needs_cuda()
+    from eaqhm_torch.ops import tracks
+    from torch_graph_nodes import captured, kernel_nodes
+    rng = np.random.default_rng(5)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for G, L, lens in ((1, 962560, None), (2, 65537, [65537, 60000]),
+                       (6, 40000, [40000, 39999, 2048, 2049, 50000, 1]),
+                       (3, 700, [700, 0, 699])):
+        det = torch.as_tensor(rng.normal(size=(G, L)), dtype=dtype,
+                              device="cuda")
+        s = det + 0.05 * torch.as_tensor(rng.normal(size=(G, L)),
+                                         dtype=dtype, device="cuda")
+        if lens is None:
+            nv = L - 1234
+            std = torch.std(det[0, :nv], correction=0)
+            kw = dict(std_det=std, n_valid=nv)
+            det, s = det[0], s[0]
+        else:
+            kw = dict(lens=torch.as_tensor(lens, device="cuda"))
+        tracks.reset_counts()
+        a = tracks.masked_srer(det, s, **kw)
+        b = tracks.masked_srer(det, s, **kw)
+        ref = tracks.masked_srer_reference(det, s, **kw)
+        torch.cuda.synchronize()
+        assert tracks.track_srer.launches == 2
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
+        live = torch.isfinite(ref)
+        assert torch.equal(live, torch.isfinite(a))
+        assert (a[live] - ref[live]).abs().max().item() <= tol, (G, L)
+        graph, c = captured(lambda: tracks.masked_srer(det, s, **kw))
+        tracks.take_captured()
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c.view(bits), a.view(bits))
+        assert kernel_nodes(graph) == tracks.srer_plan(
+            s.shape[-1]).launches == 2
+

@@ -367,3 +367,15 @@ def test_spline_and_synth_plans():
             got = spline_by_tiles(am, fm, a0, 15.0, R, acc=c["acc"],
                                   voiced=c["voiced"])
             _close(got, want, rtol=1e-12 if dt == np.float64 else 2e-6)
+
+
+@pytest.mark.parametrize("L,chunks", [(1, 1), (2048, 1), (2049, 2),
+                                      (65537, 33), (962560, 470)])
+def test_srer_plan(L, chunks):
+    """track_srer's chunks a group (blocks of 2048 samples) and the scratch
+    they need; two launches a call at every length."""
+    assert tracks.srer_plan(L) == (chunks, 2)
+    s = torch.zeros((2, L), dtype=torch.float64)
+    _, _, args, keep = tracks.srer_call(s, s, None, None, L)
+    assert tuple(keep[5].shape) == (2, chunks, 4)
+    assert args[7:9] == (2, chunks)

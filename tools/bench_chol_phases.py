@@ -6,20 +6,22 @@ clocks), runs the fused factor + solve at the main path's shapes (SA19
 female tiers), at B = 512, M = 258, at the stress widths and at the wide
 tiers' orders (M = 770-1950), and prints for each (type, B, M, path) the
 kernel time of the plain build and of the clocked build (CUDA events, warm,
-mean of 5) and the cycles per block of each phase of a block's timeline
-(thread 0's clock64 at each barrier, waits included): load, diagonal
-block, panel rows, trailing update, panel staging, backward substitution,
-output.  On the cluster and slab paths every block of a cluster counts,
-the cluster barriers fall in the phase they close (panel rows, trailing
-update), and only rank 0 runs the backward substitution and the output.
-The card's name and power limit and its SM clock under load go beside
-them; the JSON goes to --out.  --shapes replaces the default cells, e.g.
-the stress configuration's batches (c128:256x386 c128:128x514
-c64:512x386 c64:256x514); a cell may name a path and a cluster size
-(c128:128x514:global, c128:8x1950:slab:8), otherwise the kernel routes it.
+mean of 5) and the cycles of each phase (thread 0's clock64 at each
+barrier, waits included).  On the resident path: per block of its
+timeline, load, diagonal block, panel rows, trailing update, backward
+substitution, output.  On the tiled path (a sequence of launches,
+chol_tiled_*): each phase's cycles summed over the blocks of its kernels
+(the panel kernels: load, four steps, stores; the next diagonal block's
+steps inside the trailing update; the update's loads and products, its
+epilogue; backward substitution), per block of those kernels and as a
+share of all block cycles.  The card's name and power limit and its SM
+clock under load go beside them; the JSON goes to --out.  --shapes
+replaces the default cells, e.g. the stress configuration's batches
+(c128:256x386 c128:128x514 c64:512x386 c64:256x514); a cell may name a
+path (c64:512x194:tiled), otherwise the kernel routes it.
 
     python3 tools/bench_chol_phases.py [--out chiprun_out/chol_phases.json]
-                                       [--shapes c128:BxM[:path[:C]] ...]
+                                       [--shapes c128:BxM[:path] ...]
 """
 import argparse
 import ctypes
@@ -37,7 +39,10 @@ from eaqhm_torch.kernels import build  # noqa: E402
 from eaqhm_torch.ops import chol  # noqa: E402
 
 PHASES = ("load", "diagonal_block", "panel_rows", "trailing_update",
-          "panel_staging", "backward_subst", "output")
+          "backward_subst", "output")
+TILED_PHASES = ("panel_load", "panel_steps", "next_diagonal_steps",
+                "panel_stores", "update_products", "update_epilogue",
+                "backward")
 SHAPES = {torch.complex64: ((2405, 130), (1610, 162), (154, 194), (512, 258),
                             (512, 386), (256, 514), (64, 770), (8, 1950)),
           torch.complex128: ((2304, 130), (1536, 162), (154, 194),
@@ -84,7 +89,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_chol_phases: no CUDA device")
-    shapes = {dt: [(B, M, None, 0) for B, M in cells]
+    shapes = {dt: [(B, M, None) for B, M in cells]
               for dt, cells in SHAPES.items()}
     if args.shapes:
         shapes = {torch.complex64: [], torch.complex128: []}
@@ -92,8 +97,7 @@ def main():
             t, bm, *route = cell.split(":")
             B, M = (int(v) for v in bm.split("x"))
             shapes[{"c64": torch.complex64, "c128": torch.complex128}[t]] \
-                .append((B, M, route[0] if route else None,
-                         int(route[1]) if len(route) > 1 else 0))
+                .append((B, M, route[0] if route else None))
     lib = build.load("chol_solve", ("CHOL_PHASE_CLOCKS",))
     clk = (ctypes.c_ulonglong * 8)()
     rows = []
@@ -101,45 +105,59 @@ def main():
         cname = str(dt).split(".")[-1]
         sym = getattr(lib, "chol_factor_solve_" + cname.replace(
             "complex", "c"))
-        for B, M, path, csize in cells:
+        for B, M, path in cells:
             R, b = hpd(B, M, dt)
             path = path or chol.path_for(dt, M)
-            csize = csize or chol.cluster_size(dt, M, path)
-            if csize == 1:
-                csize = 0
             x = torch.empty_like(b)
             L = (torch.empty((B, M * (M + 1) // 2), dtype=dt, device="cuda")
                  if path != "resident" else None)
             d = (torch.empty((B, M), dtype=R.real.dtype, device="cuda")
-                 if path in ("cluster", "slab") else None)
+                 if path == "tiled" else None)
+            plan = chol.tiled_plan(M, B) if path == "tiled" else None
+            wk = (torch.empty((B, plan.scratch), dtype=R.real.dtype,
+                              device="cuda") if plan else None)
             stream = torch.cuda.current_stream().cuda_stream
 
             def clocked():
                 err = sym(R.data_ptr(), b.data_ptr(), x.data_ptr(),
                           None if L is None else L.data_ptr(),
-                          None if d is None else d.data_ptr(), B, M, 1,
-                          chol.PATHS.index(path), csize, stream)
+                          None if d is None else d.data_ptr(),
+                          None if wk is None else wk.data_ptr(), B, M, 1,
+                          chol.PATHS.index(path), stream)
                 assert err == 0, err
 
-            plain_ms = cuda_ms(lambda: chol.chol_solve(R, b, path=path,
-                                                       cluster=csize))
+            plain_ms = cuda_ms(lambda: chol.chol_solve(R, b, path=path))
+            tiled = path == "tiled"
+            read = lib.chol_tiled_clocks if tiled else lib.chol_phase_clocks
             clocked()
             torch.cuda.synchronize()
-            assert lib.chol_phase_clocks(clk) == 0       # zero the counters
+            assert read(clk) == 0                        # zero the counters
             clocked_ms = cuda_ms(clocked)
             sm_clock = smi("clocks.sm")
-            assert lib.chol_phase_clocks(clk) == 0
-            blocks = clk[7]
-            cyc = {p: clk[i] / blocks for i, p in enumerate(PHASES)}
-            total = sum(cyc.values())
+            assert read(clk) == 0
+            if tiled:
+                calls = 6                        # cuda_ms: a warm-up and 5
+                per = (plan.panel_blocks, plan.update_blocks,
+                       plan.backward_blocks)
+                kind = (0, 0, 1, 0, 1, 1, 2)
+                cyc = {p: clk[i] / (calls * per[kind[i]])
+                       for i, p in enumerate(TILED_PHASES)}
+                sums = {p: clk[i] for i, p in enumerate(TILED_PHASES)}
+                total = sum(sums.values())
+                share = {p: v / total for p, v in sums.items()}
+                assert clk[7] == calls * sum(per), (clk[7], per)
+            else:
+                blocks = clk[7]
+                cyc = {p: clk[i] / blocks for i, p in enumerate(PHASES)}
+                total = sum(cyc.values())
+                share = {p: v / total for p, v in cyc.items()}
             xr = chol.chol_solve_reference(R, b)
             err = ((x - xr).abs().max() / xr.abs().max()).item()
             row = {"dtype": cname, "B": B, "M": M, "path": path,
-                   "cluster": csize or 1,
                    "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,
                    "sm_clock_under_load": sm_clock,
                    "cycles_per_block": cyc,
-                   "share": {p: v / total for p, v in cyc.items()},
+                   "share": share,
                    "max_rel_err": err}
             rows.append(row)
             print(json.dumps(row), flush=True)

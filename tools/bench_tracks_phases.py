@@ -1,7 +1,8 @@
 """Where the tracks kernels' time goes, on one CUDA GPU.
 
-Times ``ops.tracks.track_spline`` and ``ops.tracks.track_synth`` (and the
-whole ``ops.tracks.stage``) at the launch shapes of the main paths, on
+Times ``ops.tracks.track_spline``, ``ops.tracks.track_synth`` (and the
+whole ``ops.tracks.stage``) and ``ops.tracks.masked_srer`` (the kernel
+track_srer) at the launch shapes of the main paths, on
 seeded anchor grids of each shape (``tests/torch_track_cases.anchor_case``:
 runs of every length, a column with no run, values outside the
 acceptance): the device's time of --reps calls captured into a CUDA graph
@@ -31,7 +32,8 @@ The card's name and power limit go beside the numbers; the JSON goes to
 --out.
 
 With --line FILE it times instead the kernels line of chip_smoke.py:
-track_spline and track_synth at every launch shape of the main paths, on
+track_spline, track_synth and track_srer at every launch shape of the main
+paths, on
 the same seeded inputs and with the same replays as chip_smoke.py, summed
 over the paths' launches.  chip_smoke.py writes FILE
 (eaqhm_torch/kernels/build/tracks_line_shapes.json); with PYTHONPATH naming
@@ -119,8 +121,8 @@ def inputs(dtype, G, n, K, L, fs, mode, seed):
     c = anchor_case(seed, G=G, n=n, K=K, step=STEP,
                     extra=L - (n - 1) * STEP - 1, fs=fs)
     t = {k: torch.as_tensor(c[k], device="cuda")
-         for k in ("am", "fm", "ph", "acc", "a0", "voiced")}
-    for k in ("am", "fm", "ph", "a0"):
+         for k in ("am", "fm", "ph", "acc", "a0", "voiced", "det", "lens")}
+    for k in ("am", "fm", "ph", "a0", "det"):
         t[k] = t[k].to(dt)
     if not acc:
         for k in ("am", "fm", "ph"):
@@ -195,8 +197,11 @@ def run_cell(cell, reps, clocked):
 
     def stage():
         return tracks.stage(am, fm, ph, a0, STEP, fs, L, **kw, **md)
+    det, s_rec, skw = chip_smoke.srer_inputs(torch, t, stage(), md["dc"])
     ms = {"track_spline": cuda_ms(spline, reps),
-          "track_synth": cuda_ms(synth, reps), "stage": cuda_ms(stage, reps)}
+          "track_synth": cuda_ms(synth, reps), "stage": cuda_ms(stage, reps),
+          "track_srer": cuda_ms(lambda: tracks.masked_srer(det, s_rec, **skw),
+                                reps)}
     if hasattr(tracks, "stage_tiers") and group == "sa19":
         tiers = tier_inputs(t, kw, n)
         ms["stage_tiers"] = cuda_ms(lambda: tracks.stage_tiers(
@@ -204,8 +209,9 @@ def run_cell(cell, reps, clocked):
     key = (G, n, K, L, STEP, fs, mode, dtype)
     isz = am.element_size()
     bound = {}
-    for kname, (nbytes, ops) in zip(("track_spline", "track_synth"),
-                                    chip_smoke.tracks_costs(key, isz)[:2]):
+    for kname, (nbytes, ops) in zip(("track_spline", "track_synth",
+                                     "track_srer"),
+                                    chip_smoke.tracks_costs(key, isz)):
         bound[kname] = max(nbytes / chip_smoke.HBM_BYTES_S * 1e3,
                            ops / chip_smoke.PEAK_FLOP_S[dtype] * 1e3)
     rec = {"group": group, "cell": name, "dtype": dtype, "G": G, "n": n,
@@ -239,10 +245,10 @@ def run_cell(cell, reps, clocked):
 def line_sums(path):
     """Sums over the kernels line's launches (chip_smoke.py tracks_phase:
     count x ms of 10 calls replayed, 3 for a shape launched once) of
-    track_spline and track_synth, on chip_smoke.py's inputs."""
+    track_spline, track_synth and track_srer, on chip_smoke.py's inputs."""
     with open(path) as f:
         rows = json.load(f)
-    tot = {"track_spline": 0.0, "track_synth": 0.0}
+    tot = {"track_spline": 0.0, "track_synth": 0.0, "track_srer": 0.0}
     calls = 0
     for *key, count, seed in rows:
         G, n, K, L, step, fs, mode, tname = key
@@ -256,8 +262,12 @@ def line_sums(path):
             am, fm, acc, a0, voiced, step), reps)
         tot["track_synth"] += count * cuda_ms(lambda: tracks.track_synth(
             am, fm, ph, acc, a0, voiced, M, step, fs, L, **md), reps)
+        got = tracks.stage(*args, **kw, **md)
+        det, s_rec, skw = chip_smoke.srer_inputs(torch, t, got, md["dc"])
+        tot["track_srer"] += count * cuda_ms(lambda: tracks.masked_srer(
+            det, s_rec, **skw), reps)
         calls += count
-        del t, args, M
+        del t, args, M, got
         torch.cuda.empty_cache()
     return {"ms": tot, "calls": calls, "shapes": len(rows)}
 

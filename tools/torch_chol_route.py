@@ -1,15 +1,15 @@
 """The Cholesky kernel's candidate paths against each other, on one CUDA GPU:
 the table that eaqhm_torch/kernels/csrc/chol_solve.cu's path_of routes by.
 
-For each (type, B, M) cell, every path that fits M (resident, global,
-cluster at 2, 4 and 8 blocks, slab at 8) runs the fused factor + solve
-("nan" rule, no factor kept) on seeded equilibrated HPD systems built on
-the card: its error against cuSOLVER's route (checked), and its time (CUDA
-events, warm, mean of --reps launches), with cuSOLVER's time and the
-routed path beside them.  The default cells are PERF.md's per-M batches
-(M = 98-514, the stress cells among them), the crossovers (M = 290, 642,
-770) and the wide tiers' (M = 770-6146).  One JSON line per cell, the
-card's name and power limit, and the whole report in --out.
+For each (type, B, M) cell, every path that takes M (resident, tiled) runs
+the fused factor + solve ("nan" rule, no factor kept) on seeded
+equilibrated HPD systems built on the card: its error against cuSOLVER's
+route (checked), and its time (CUDA events, warm, mean of --reps
+launches), with cuSOLVER's time and the routed path beside them.  The
+default cells are PERF.md's per-M batches (M = 98-514, the stress cells
+among them), the crossovers (M = 290, 642, 770) and the wide tiers'
+(M = 770-6657).  One JSON line per cell, the card's name and power limit,
+and the whole report in --out.
 
     python3 tools/torch_chol_route.py [--out build/chol_route.json]
                                       [--cells c128:BxM c64:BxM ...]
@@ -31,11 +31,9 @@ CELLS = {"c64": ((512, 98), (512, 130), (512, 162), (512, 194), (512, 258),
                  (32, 1026), (16, 1294), (8, 1950), (2, 6146)),
          "c128": ((512, 98), (512, 130), (512, 162), (512, 194), (512, 258),
                   (256, 290), (256, 386), (128, 514), (128, 642), (64, 770),
-                  (32, 1026), (16, 1294), (8, 1950), (2, 6146))}
+                  (32, 1026), (16, 1294), (8, 1950), (2, 6146), (2, 6657))}
 TYPES = {"c64": torch.complex64, "c128": torch.complex128}
 TOL = {"c64": 2e-5, "c128": 1e-12}
-CANDIDATES = (("resident", 0), ("global", 0), ("cluster", 2), ("cluster", 4),
-              ("cluster", 8), ("slab", 8))
 
 
 def hpd(B, M, dtype, seed):
@@ -68,16 +66,12 @@ def card():
                           text=True).stdout.strip().splitlines()[0]
 
 
-def fits(path, c, dt, M):
-    """Whether the kernel takes (path, cluster size) at order M, asked of
-    the kernel with a one-system launch (it refuses a path whose shared
-    memory does not fit M)."""
-    try:
-        R, b = hpd(1, M, dt, seed=0)
-        chol.chol_solve(R, b, path=path, cluster=c)
-        return True
-    except RuntimeError:
-        return False
+def candidates(dt, M):
+    """The paths that take order M: both where the kernel routes M to the
+    resident path (the tiled path takes every order), else the tiled path
+    alone (the resident path's shared memory does not fit M)."""
+    return (chol.PATHS if chol.path_for(dt, M) == "resident"
+            else ("tiled",))
 
 
 def main():
@@ -105,21 +99,16 @@ def main():
         reps = args.reps if M <= 2048 else 2
         row = {"dtype": t, "B": B, "M": M,
                "routed": chol.path_for(dt, M),
-               "routed_cluster": chol.cluster_size(dt, M,
-                                                   chol.path_for(dt, M)),
                "cusolver_ms": cuda_ms(lambda: chol.chol_solve_reference(
                    R, b), reps), "ms": {}, "max_rel_err": {}}
-        for path, c in CANDIDATES:
-            if not fits(path, c, dt, M):
-                continue
-            key = f"{path}{c or ''}"
-            x = chol.chol_solve(R, b, path=path, cluster=c)
+        for path in candidates(dt, M):
+            x = chol.chol_solve(R, b, path=path)
             torch.cuda.synchronize()
             err = ((x - xr).abs().max() / xr.abs().max()).item()
-            row["max_rel_err"][key] = err
-            assert err <= TOL[t], (t, B, M, key, err)
-            row["ms"][key] = cuda_ms(
-                lambda: chol.chol_solve(R, b, path=path, cluster=c), reps)
+            row["max_rel_err"][path] = err
+            assert err <= TOL[t], (t, B, M, path, err)
+            row["ms"][path] = cuda_ms(
+                lambda: chol.chol_solve(R, b, path=path), reps)
         row["fastest"] = min(row["ms"], key=row["ms"].get)
         rows.append(row)
         print(json.dumps(row), flush=True)
