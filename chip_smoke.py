@@ -9,8 +9,10 @@
 2. Kernel phase: each hand kernel against its plain PyTorch version on the
    card (random equilibrated HPD systems drawn on the card from a seed), in
    both pivot rules ("guard", "nan"), on the paths M <= 258 takes, for
-   the fused solve and the kept factor's substitution, with the tolerance
-   asserted and the path and times printed.
+   the fused solve and the kept factor's substitution (routed, and on each
+   of its two paths, one-block and tiled), with the tolerance asserted and
+   the paths and times printed (the substitution's beside
+   torch.cholesky_solve and its byte bound).
    The block-inverse kernel (JAX's float32 default solve) against its plain
    version at (B, M) = (512, 98-238), (512, 386), (256, 514), (64, 770)
    and (16, 1294) in both types (x to 1e-4 / 1e-10), with its path, the
@@ -19,7 +21,8 @@
    call (the wrapper's formula and the nodes of the call captured into a
    CUDA graph), the residual ratios against the plain version's.
    Non-PD phase: the "nan" rule returns NaN on exactly the systems whose
-   cuSOLVER factorization fails, and solve_gram(float32, "cholesky") and
+   cuSOLVER factorization fails, and so does the substitution with its
+   kept factor on both paths; solve_gram(float32, "cholesky") and
    solve_gram(float32, "block_inverse") on the card take the ridged rerun
    as the same calls on the CPU do.  float64 solve_method="block_inverse"
    on the 1 s tone of the fixture's engine_options group held to JAX's
@@ -57,7 +60,9 @@
    mesh (a world-size-1 NCCL group from torchrun's environment, make_mesh,
    analyze_batch equal to mesh=None, run_corpus_sharded with resume);
    determinism (``chip_smoke.py --determinism`` as a subprocess: two runs
-   under determinism.apply() bitwise equal).
+   under determinism.apply() bitwise equal; each substitution path at
+   8 x 1950 bitwise equal from run to run and for a system alone as in
+   its batch).
 9. Stress (the JAX benchmark's config 4, eaqhm_torch.benchmarks): the 60 s
    signal at f0 76-84 Hz with the male preset, max_adaptations=10, at full
    width (tiers Kc = 96 and 128: M = 386 and 514), once in float64 (host
@@ -87,7 +92,8 @@
    1950), (2, 6146) and (2, 6657) against its plain versions in both rules
    (errors to 2e-5 / 1e-12), the kept factor's substitution too, beside
    cuSOLVER and the bound; the M = 194-514 cells timed on every path that
-   fits them beside the route's choice; the "nan" rule on the tiled path.
+   fits them beside the route's choice; the "nan" rule on the tiled path,
+   and the substitution with its failed factor on both paths.
    Then analyze on tones built as config 4's signal at other rates: 22.05
    kHz male, 0.5 s (M = 770), float64 host loop and fused loop held to the
    JAX fixture (wide/fs22050) as in 3, float32 default under the gate
@@ -129,7 +135,11 @@
    spilled bytes (asserted 0) and blocks a SM; kernel ms from a CUDA
    graph of launches replayed (the device's time, no host gap).
 15. One JSON line of the kernels (each kernel at every launch the paths
-   made, the block inverse per type at every call, fit_basis and fit_gram
+   made: the Cholesky factor + solve and the substitution with a kept
+   factor as two entries, the substitution's device launches a call
+   counted from a captured call's graph nodes, both its paths timed at
+   every shape the paths made beside torch.cholesky_solve and the two
+   triangular solves; the block inverse per type at every call, fit_basis and fit_gram
    over every shape, the tracks kernels over every shape, launches counted
    per entry point and per path, counts set to 0 just before each path and
    read just after), the nvidia-smi line, and as the last line
@@ -373,10 +383,13 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel",
             errs = {}
             for mode in chol.MODES:
                 x, f = chol.chol_solve(R, b, mode=mode, keep_factor=True)
-                xs = chol.chol_subst(f, b)
+                # the routed substitution, then each path by name
+                xs = [chol.chol_subst(f, b)] + [
+                    chol.chol_subst(f, b, path=p) for p in chol.SUBST_PATHS]
                 torch.cuda.synchronize()
                 xr = chol.chol_solve_reference(R, b, mode=mode)
-                errs[mode] = (rel_err(x, xr), rel_err(xs, xr))
+                errs[mode] = (rel_err(x, xr),
+                              *(rel_err(v, xr) for v in xs))
                 r = torch.matmul(R, x[..., None])[..., 0] - b
                 resid = (r.norm() / b.norm()).item()
                 assert max(errs[mode]) <= tol, (cname, B, M, mode, errs)
@@ -386,13 +399,29 @@ def kernel_phase(torch, chol, cells=KERNEL_CELLS, what="kernel",
             lib_ms = cuda_ms(lambda: chol.chol_solve_reference(R, b), reps)
             bnd, by = bound_ms(*factor_cost(B, M, R.element_size(), False),
                                cname)
+            s_ms = {p: cuda_ms(lambda: chol.chol_subst(f, b, path=p), reps)
+                    for p in chol.SUBST_PATHS}
+            Lf = chol.unpack_factor(f)
+
+            def library():
+                return torch.cholesky_solve(b[..., None], Lf)
+            try:     # the library's batched cholesky_solve refuses M = 6146
+                s_lib = f"{cuda_ms(library, reps):.4f}"
+            except RuntimeError as e:
+                s_lib = f"failed ({str(e).splitlines()[0]})"
+            s_bnd, _ = bound_ms(*subst_cost(B, M, R.element_size()), cname)
+            spath = chol.subst_path_for(M)
             log(f"{what} chol_solve {cname} B={B} M={M} path={path} "
                 f"({chol.launches_per_call(M, path, B)} launches): "
                 f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bnd:.4f} ({by}) max_rel_err (solve, subst) "
-                f"guard={errs['guard'][0]:.3e},{errs['guard'][1]:.3e} "
-                f"nan={errs['nan'][0]:.3e},{errs['nan'][1]:.3e} "
-                f"(asserted <= {tol:g})")
+                f"bound_ms={bnd:.4f} ({by}) max_rel_err (solve, subst "
+                f"routed, {', '.join(chol.SUBST_PATHS)}) "
+                f"guard={','.join(f'{e:.3e}' for e in errs['guard'])} "
+                f"nan={','.join(f'{e:.3e}' for e in errs['nan'])} "
+                f"(asserted <= {tol:g}); chol_subst routed to {spath} "
+                f"({chol.subst_launches_per_call(M, spath, B)} launches) "
+                f"ms {', '.join(f'{p} {v:.4f}' for p, v in s_ms.items())}, "
+                f"cholesky_solve {s_lib}, bound {s_bnd:.4f}")
     return worst
 
 
@@ -418,7 +447,7 @@ def non_pd_nan_phase(torch, chol):
     for dt in (torch.complex64, torch.complex128):
         for M in (130, 258):
             R, b = non_pd_batch(torch, 64, M, shifts, dt, "cuda")
-            x = chol.chol_solve(R, b, mode="nan")
+            x, f = chol.chol_solve(R, b, mode="nan", keep_factor=True)
             xr = chol.chol_solve_reference(R, b, mode="nan")
             got = torch.isnan(x).any(dim=1).nonzero().flatten().tolist()
             want = torch.isnan(xr).any(dim=1).nonzero().flatten().tolist()
@@ -429,6 +458,8 @@ def non_pd_nan_phase(torch, chol):
                 f"{err:.3e}")
             assert got == want == bad, (dt, M, got, want)
             assert err <= KERNEL_TOL[str(dt).split(".")[-1]], (dt, M, err)
+            subst_nan_check(torch, chol, f, b,
+                            [i in bad for i in range(64)], "non-PD")
 
 
 def non_pd_bi_phase(torch, chol, solver, pref):
@@ -491,26 +522,15 @@ def non_pd_ridge_phase(torch, chol, solver):
 def kernel_line_entry(torch, chol, dt, fused, subst):
     """The kernel and its plain version at every launch the main path made
     (fused: (B, M, path, mode, keep) per factor + solve launch; subst:
-    (B, M, path) per substitution): error asserted, each factor + solve
-    shape's device launches counted from its captured call's graph nodes
-    (and held to the wrapper's plan), times, launches and bound summed over
-    all calls.  library_ms is the cuSOLVER route for the same work:
-    a Cholesky plus two triangular solves per factor + solve, two
-    triangular solves per substitution."""
+    (B, M, path) per substitution): error asserted, each shape's device
+    launches counted from its captured call's graph nodes (and held to the
+    wrapper's plan), times, launches and bound summed over all calls; one
+    entry for the factor + solve, one for the substitution where the paths
+    made one (subst_line_entry).  library_ms of the factor + solve is the
+    cuSOLVER route for the same work: a Cholesky plus two triangular
+    solves."""
     cname = str(dt).split(".")[-1]
-    k_ms = {"chol_factor_solve": 0.0, "chol_subst": 0.0}
-    l_ms = dict(k_ms)
-    p_ms = 0.0
-    nbytes = flops = 0.0
-    err = 0.0
-
-    def check(what, x, xr, n):
-        nonlocal err
-        rel = rel_err(x, xr)
-        log(f"main-path {what} x{n}: max_rel_err={rel:.3e} "
-            f"(asserted <= {KERNEL_TOL[cname]:g})")
-        assert rel <= KERNEL_TOL[cname], (cname, what, rel)
-        err = max(err, (x - xr).abs().max().item())
+    k_ms = p_ms = l_ms = nbytes = flops = err = 0.0
 
     pools = {}
 
@@ -525,60 +545,126 @@ def kernel_line_entry(torch, chol, dt, fused, subst):
         R, b = pools[(M, seed)]
         return R[:B].contiguous(), b[:B].contiguous()
 
+    def check(what, x, xr, n):
+        rel = rel_err(x, xr)
+        log(f"main-path {what} x{n}: max_rel_err={rel:.3e} "
+            f"(asserted <= {KERNEL_TOL[cname]:g})")
+        assert rel <= KERNEL_TOL[cname], (cname, what, rel)
+        return (x - xr).abs().max().item()
+
     per_call = {}
-    device_launches = len(subst)
+    device_launches = 0
     for (B, M, path, mode, keep), n in sorted(Counter(fused).items()):
         R, b = systems(B, M, 1000, fused)
         x = chol.chol_solve(R, b, mode=mode, keep_factor=keep)
         x = x[0] if keep else x
-        check(f"chol_solve {cname} B={B} M={M} {path} {mode} keep={keep}",
-              x, chol.chol_solve_reference(R, b, mode=mode), n)
+        err = max(err, check(
+            f"chol_solve {cname} B={B} M={M} {path} {mode} keep={keep}",
+            x, chol.chol_solve_reference(R, b, mode=mode), n))
         # device launches of this shape's call, counted on the card
         got = graph_launches(torch, lambda: chol.chol_solve(
             R, b, mode=mode, keep_factor=keep))
         assert got == chol.launches_per_call(M, path, B), (B, M, path, got)
         per_call.setdefault(f"{M} {path}", set()).add(got)
         device_launches += n * got
-        k_ms["chol_factor_solve"] += n * cuda_ms(
+        k_ms += n * cuda_ms(
             lambda: chol.chol_solve(R, b, mode=mode, keep_factor=keep), 3)
         p_ms += n * cuda_ms(
             lambda: chol.chol_solve_reference(R, b, mode=mode), 3)
-        l_ms["chol_factor_solve"] += n * cuda_ms(
-            lambda: chol.chol_solve_reference(R, b), 3)
+        l_ms += n * cuda_ms(lambda: chol.chol_solve_reference(R, b), 3)
         cb, cf = factor_cost(B, M, R.element_size(), keep)
         nbytes += n * cb
         flops += n * cf
-    for (B, M, path), n in sorted(Counter(subst).items()):
+    bnd, by = bound_ms(nbytes, flops, cname)
+    entries = [{"name": f"chol_solve[{cname}]", "route": "cuda",
+                "source": "eaqhm_torch/kernels/csrc/chol_solve.cu",
+                "replaces": "eaqhm_tpu/ops/pallas_chol.py:68",
+                "launches": len(fused), "device_launches": device_launches,
+                "device_launches_per_call": {k: sorted(v) for k, v
+                                             in per_call.items()},
+                "paths": dict(Counter(s[2] for s in fused)),
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bnd, "bound_by": by, "library_ms": l_ms}]
+    if subst:
+        entries.append(subst_line_entry(torch, chol, dt, subst, systems,
+                                        check))
+    return entries
+
+
+def subst_line_entry(torch, chol, dt, subst, systems, check):
+    """The substitution with a kept factor ("guard" factors of seeded
+    systems) at every (B, M, path) the main paths launched: each path held
+    to the plain version, device launches a call counted from a captured
+    call's graph nodes (held to the wrapper's plan), the routed path's ms,
+    both paths' ms (the one-block kernel as the yardstick the tiled
+    substitution must not lose to), and the two library
+    routes: torch.cholesky_solve on the unpacked factor (one PyTorch call
+    for the same function: library_ms) and the plain version's two
+    torch.linalg.solve_triangular calls; all summed over the calls.  The
+    shapes and counts also go to eaqhm_torch/kernels/build/
+    subst_line_<type>.json for tools/torch_chol_route.py --subst-line."""
+    cname = str(dt).split(".")[-1]
+    scratch = os.path.join(ROOT, "eaqhm_torch", "kernels", "build")
+    os.makedirs(scratch, exist_ok=True)        # listed in .gitignore
+    calls = sorted(Counter(subst).items())
+    with open(os.path.join(scratch, f"subst_line_{cname}.json"), "w") as f:
+        json.dump([[cname, B, M, n] for (B, M, _), n in calls], f)
+    ms = {"routed": 0.0, **dict.fromkeys(chol.SUBST_PATHS, 0.0)}
+    lib = {"cholesky_solve": 0.0, "two_solve_triangular": 0.0}
+    nbytes = flops = err = 0.0
+    per_call, device_launches, slower = {}, 0, []
+    for (B, M, path), n in calls:
         R, b = systems(B, M, 2000, subst)
         _, f = chol.chol_solve(R, b, mode="guard", keep_factor=True)
         L = chol.unpack_factor(f)
-        check(f"chol_subst {cname} B={B} M={M} {path}",
-              chol.chol_subst(f, b), chol.chol_subst_reference(L, b), n)
-        k_ms["chol_subst"] += n * cuda_ms(lambda: chol.chol_subst(f, b), 3)
-        # the plain substitution is itself the library's two triangular
-        # solves
-        t = n * cuda_ms(lambda: chol.chol_subst_reference(L, b), 3)
-        p_ms += t
-        l_ms["chol_subst"] += t
+        xr = chol.chol_subst_reference(L, b)
+        assert path == chol.subst_path_for(M), (B, M, path)
+        for p in chol.SUBST_PATHS:
+            err = max(err, check(f"chol_subst {cname} B={B} M={M} {p}"
+                                 f"{' (routed)' if p == path else ''}",
+                                 chol.chol_subst(f, b, path=p), xr, n))
+        got = graph_launches(torch, lambda: chol.chol_subst(f, b))
+        assert got == chol.subst_launches_per_call(M, path, B), (B, M, got)
+        per_call[f"{B}x{M} {path}"] = got
+        device_launches += n * got
+        t = {p: cuda_ms(lambda: chol.chol_subst(f, b, path=p), 3)
+             for p in chol.SUBST_PATHS}
+        tl = {"cholesky_solve": cuda_ms(
+                  lambda: torch.cholesky_solve(b[..., None], L), 3),
+              "two_solve_triangular": cuda_ms(
+                  lambda: chol.chol_subst_reference(L, b), 3)}
+        if t[path] > t["one_block"]:
+            slower.append(f"{B}x{M}")
+        log(f"main-path chol_subst {cname} B={B} M={M} x{n}: routed {path} "
+            f"({got} device launches a call); ms "
+            f"{', '.join(f'{p} {v:.4f}' for p, v in t.items())}; library "
+            f"{', '.join(f'{p} {v:.4f}' for p, v in tl.items())}")
+        ms["routed"] += n * t[path]
+        for p, v in t.items():
+            ms[p] += n * v
+        for p, v in tl.items():
+            lib[p] += n * v
         cb, cf = subst_cost(B, M, R.element_size())
         nbytes += n * cb
         flops += n * cf
     bnd, by = bound_ms(nbytes, flops, cname)
-    return {"name": f"chol_solve[{cname}]", "route": "cuda",
+    faster = min(lib, key=lib.get)
+    log(f"chol_subst {cname} over the main paths: routed {ms['routed']:.3f}"
+        f" ms, {', '.join(f'{p} {ms[p]:.3f}' for p in chol.SUBST_PATHS)},"
+        f" library {', '.join(f'{p} {v:.3f}' for p, v in lib.items())} "
+        f"(faster {faster}), bound {bnd:.3f} ({by}); shapes where the "
+        f"routed path read slower than the one-block kernel: {slower}")
+    return {"name": f"chol_subst[{cname}]", "route": "cuda",
             "source": "eaqhm_torch/kernels/csrc/chol_solve.cu",
             "replaces": "eaqhm_tpu/ops/pallas_chol.py:68",
-            "launches": len(fused) + len(subst),
-            "launches_by_entry": {"chol_factor_solve": len(fused),
-                                  "chol_subst": len(subst)},
-            "device_launches": device_launches,
-            "device_launches_per_call": {k: sorted(v) for k, v
-                                         in per_call.items()},
-            "factorizations": len(fused),
-            "paths": dict(Counter(s[2] for s in fused)),
-            "max_abs_err": err, "ms": sum(k_ms.values()), "plain_ms": p_ms,
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": sum(l_ms.values()),
-            "ms_by_entry": k_ms, "library_ms_by_entry": l_ms}
+            "launches": len(subst), "device_launches": device_launches,
+            "device_launches_per_call": per_call,
+            "paths": dict(Counter(x[2] for x in subst)),
+            "max_abs_err": err, "ms": ms["routed"],
+            "ms_by_path": {p: ms[p] for p in chol.SUBST_PATHS},
+            "plain_ms": lib["two_solve_triangular"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib["cholesky_solve"],
+            "library_ms_by_route": lib, "faster_library": faster}
 
 
 def bi_line_entry(torch, bi, cname):
@@ -1260,8 +1346,22 @@ def determinism_child():
         runs.append(batch_engine.analyze_batch(sigs, FS, cfg, device="cuda"))
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
+    # the substitution's sums in a fixed order: each path bitwise equal
+    # from run to run, and a system's x the same alone as in a batch of 8
+    from eaqhm_torch.ops import chol
+    subst = {}
+    for dt in (torch.complex64, torch.complex128):
+        R, b = hpd_batch(8, 1950, seed=1950, dtype=dt, device="cuda")
+        _, f = chol.chol_solve(R, b, mode="guard", keep_factor=True)
+        one = chol.Factor(f.L[1:2].contiguous(), f.d[1:2].contiguous())
+        for p in chol.SUBST_PATHS:
+            xa = chol.chol_subst(f, b, path=p)
+            xb = chol.chol_subst(f, b, path=p)
+            x1 = chol.chol_subst(one, b[1:2].contiguous(), path=p)
+            subst[f"{str(dt).split('.')[-1]} {p}"] = bool(
+                torch.equal(xa, xb) and torch.equal(xa[1:2], x1))
     print(json.dumps({
-        "applied": applied, "seconds": secs,
+        "applied": applied, "seconds": secs, "subst_bitwise": subst,
         "srer_bitwise": bool(np.array_equal(runs[0].srer, runs[1].srer)),
         "s_recon_bitwise": bool(np.array_equal(runs[0].s_recon,
                                                runs[1].s_recon)),
@@ -1286,8 +1386,10 @@ def determinism_phase(out64):
         f" s, SRER bitwise equal {rep['srer_bitwise']}, s_recon bitwise "
         f"equal {rep['s_recon_bitwise']}, adaptations "
         f"{rep['n_adaptations']}, max|dfinal SRER| vs the default mode "
-        f"{d:.3e} dB")
+        f"{d:.3e} dB; chol_subst at 8 x 1950 bitwise equal from run to run "
+        f"and alone as in the batch {rep['subst_bitwise']}")
     assert rep["srer_bitwise"], rep
+    assert all(rep["subst_bitwise"].values()), rep
 
 
 class SpanTimer:
@@ -1637,6 +1739,31 @@ def route_phase(torch, chol):
             log(f"route {cname} B={B} M={M}: routed to {routed}; ms {ms}")
 
 
+def subst_nan_check(torch, chol, f, b, bad, what):
+    """The substitution with a "nan" rule factor that failed on the systems
+    flagged in bad: each path gives NaN on exactly those (every entry) and
+    chol_subst_reference on the unpacked factor the same; the healthy
+    systems to KERNEL_TOL of it."""
+    cname = str(b.dtype).split(".")[-1]
+    b2 = (b * (0.5 + 1j)).contiguous()
+    xr = chol.chol_subst_reference(chol.unpack_factor(f), b2)
+    want = torch.isnan(xr).any(dim=1).tolist()
+    ok = [i for i, v in enumerate(bad) if not v]
+    for p in chol.SUBST_PATHS:
+        xs = chol.chol_subst(f, b2, path=p)
+        got = torch.isnan(xs).any(dim=1).tolist()
+        err = rel_err(xs[ok], xr[ok])
+        log(f"{what} nan rule chol_subst {cname} B={b.shape[0]} "
+            f"M={b.shape[1]} {p}: NaN systems "
+            f"{[i for i, v in enumerate(got) if v]} (plain "
+            f"{[i for i, v in enumerate(want) if v]}), healthy max_rel_err "
+            f"{err:.3e}")
+        assert got == want == bad, (p, got, want, bad)
+        bad_rows = [i for i, v in enumerate(bad) if v]
+        assert torch.isnan(xs[bad_rows]).all(), p
+        assert err <= KERNEL_TOL[cname], (p, err)
+
+
 def wide_nan_phase(torch, chol):
     """The "nan" rule at the wide orders: a negative diagonal entry fails a
     factorization in the first panel of system 1 and in the last panel of
@@ -1657,6 +1784,7 @@ def wide_nan_phase(torch, chol):
             diag = torch.diagonal(chol.unpack_factor(f), dim1=-2, dim2=-1)
             assert torch.isnan(diag[[1, 3]]).all()
             assert torch.isfinite(x[[0, 2]]).all()
+            subst_nan_check(torch, chol, f, b, bad.tolist(), "wide")
 
 
 def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
@@ -2424,10 +2552,12 @@ def main(phases=PHASES):
         subst = [x for sh in shapes[cname].values() for x in sh[1]]
         if not fused and not subst:
             continue
-        entry = kernel_line_entry(torch, chol, dt, fused, subst)
-        entry["launches_by_path"] = {k: len(f) + len(u) for k, (f, u)
-                                     in shapes[cname].items()}
-        kernels.append(entry)
+        entries = kernel_line_entry(torch, chol, dt, fused, subst)
+        for entry, i in zip(entries, (0, 1)):
+            entry["launches_by_path"] = {k: len(sh[i]) for k, sh
+                                         in shapes[cname].items()
+                                         if sh[i]}
+        kernels.extend(entries)
     for cname in ("complex128", "complex64"):
         entry = bi_line_entry(torch, block_inverse, cname)
         if entry is not None:

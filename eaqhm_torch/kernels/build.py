@@ -36,10 +36,13 @@ KERNELS = {
         "chol_prepare": [],
         "chol_phase_clocks": [_P],
         "chol_tiled_clocks": [_P],
+        "chol_subst_clocks": [_P],
         "chol_factor_solve_c64": [_P] * 6 + [_I, _I, _I, _I, _P],
         "chol_factor_solve_c128": [_P] * 6 + [_I, _I, _I, _I, _P],
-        "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _P],
-        "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _P],
+        "chol_subst_plan": [_I, _I, _P],
+        "chol_subst_route": [_I],
+        "chol_subst_c64": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "chol_subst_c128": [_P, _P, _P, _P, _I, _I, _I, _P],
     }),
     "block_inverse": ("block_inverse.cu", {
         "bi_prepare": [],
@@ -89,6 +92,8 @@ KERNELS = {
 HOST = {
     "chol_plan": ("chol_plan.h", {
         "chol_tiled_plan": [_I, _I, _P],
+        "chol_subst_plan": [_I, _I, _P],
+        "chol_subst_route": [_I],
     }),
     "tracks_plan": ("tracks_plan.h", {
         "track_spline_plan": [_I, _I, _I, _P],

@@ -55,12 +55,24 @@
 //   pairs (each trailing element read and written once per 128 columns),
 //   complex128 on mma.sync m16n8k4.
 // - The resident path's backward substitution L^H x = y, and both sweeps of
-//   the substitution entry point, are blocked the same way: one warp solves
-//   each NB-row diagonal block with shuffles, then all threads update the
-//   remaining rows (forward) or columns (backward), two barriers per block.
-//   The substitution entry point stages the packed factor in shared memory
-//   (cp.async) at the resident sizes, reads it from device memory with y in
-//   shared memory where y fits, and otherwise keeps y in x as well.
+//   the substitution entry point's one-block kernel, are blocked the same
+//   way: one warp solves each NB-row diagonal block with shuffles, then all
+//   threads update the remaining rows (forward) or columns (backward), two
+//   barriers per block.  The one-block kernel stages the packed factor in
+//   shared memory (cp.async) at the resident sizes, reads it from device
+//   memory with y in shared memory where y fits, and otherwise keeps y in x
+//   as well.
+// - The substitution entry point's tiled path, every M above one row block
+//   (chol_plan.h subst_route), where B blocks of the one-block kernel leave
+//   most of the card idle for its 2 M / 16 serial steps: each system spread
+//   over the card, a forward launch per 64 rows (chol_subst_forward, a
+//   block per 64-row tile below the block being solved) and a backward
+//   launch per 64 rows (chol_subst_backward, the tiled path's backward
+//   substitution on the kept factor), each launch started while the one
+//   ahead ends (programmatic dependent launch).  Its bound is the factor's
+//   bytes; its time, the chain of 64-row diagonal solves.  Above one row
+//   block the one-block kernel runs only when asked for by name, as the
+//   yardstick the tiled path is measured against.
 //
 // It takes any M >= 1 and any B: no padding to a panel width, no batch
 // padding.  Complex values are interleaved (float2 / double2), which is the
@@ -103,11 +115,20 @@ __device__ unsigned long long g_clk[8];
 // of all four kernels.
 __device__ unsigned long long g_tclk[8];
 #define TCLK_FLUSH CLK_FLUSH_TO(g_tclk)
+// The substitution with a kept factor (chol_subst_kernel, and the tiled
+// substitution's chol_subst_forward / chol_subst_backward) adds its phases
+// to g_sclk: 0 load (the staged factor, rhs, 1 / diag), 1 forward diagonal
+// blocks, 2 forward row updates, 3 backward diagonal blocks, 4 backward
+// column updates, 5 waits (barriers, and a tiled launch's wait for the
+// launch ahead of it), 6 output, 7 blocks.
+__device__ unsigned long long g_sclk[8];
+#define SCLK_FLUSH CLK_FLUSH_TO(g_sclk)
 #else
 #define CLK_START
 #define CLK_MARK(slot)
 #define CLK_FLUSH
 #define TCLK_FLUSH
+#define SCLK_FLUSH
 #endif
 
 namespace {
@@ -198,6 +219,12 @@ size_t smem_bytes(int M) {
          16;
 }
 
+// A sweep's phase marks (SCLK slots; no-ops outside CHOL_PHASE_CLOCKS
+// builds and for callers that pass none).
+struct NoMark {
+  __device__ void operator()(int) const {}
+};
+
 // dv[j] is 1 / L[j, j] (kInv false) or L[j, j] itself (kInv true).
 template <typename T, bool kInv>
 __device__ __forceinline__ T inv_diag(const T* dv, int j) {
@@ -210,9 +237,10 @@ __device__ __forceinline__ T inv_diag(const T* dv, int j) {
 // inverse (kInv).  One warp solves each NB-row diagonal block with
 // shuffles, then all threads update the rows below; all threads of the
 // block call it.
-template <typename T, bool kInv = false>
+template <typename T, bool kInv = false, typename MARK = NoMark>
 __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
-                        typename Cplx<T>::type* y, int M) {
+                        typename Cplx<T>::type* y, int M,
+                        MARK mark = MARK()) {
   using C = typename Cplx<T>::type;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -232,7 +260,9 @@ __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
       }
       if (lane < jb) y[j0 + lane] = v;
     }
+    mark(1);
     __syncthreads();
+    mark(5);
     for (int i = j0 + jb + tid; i < M; i += kThreads) {
       const C* lr = L + tri_off(i) + j0;
       C s = y[i];
@@ -240,15 +270,18 @@ __device__ void forward(const typename Cplx<T>::type* L, const T* dv,
         sub_mul(s, lr[c], y[j0 + c]);
       y[i] = s;
     }
+    mark(2);
     __syncthreads();
+    mark(5);
   }
 }
 
 // Backward L^H x = y, in place in y; the same blocking from the last block
 // (row j of L is column j of L^H, read by neighbouring threads).
-template <typename T, bool kInv = false>
+template <typename T, bool kInv = false, typename MARK = NoMark>
 __device__ void backward(const typename Cplx<T>::type* L, const T* dv,
-                         typename Cplx<T>::type* y, int M) {
+                         typename Cplx<T>::type* y, int M,
+                         MARK mark = MARK()) {
   using C = typename Cplx<T>::type;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -269,14 +302,18 @@ __device__ void backward(const typename Cplx<T>::type* L, const T* dv,
       }
       if (lane < jb) y[j0 + lane] = v;
     }
+    mark(3);
     __syncthreads();
+    mark(5);
     for (int k = tid; k < j0; k += kThreads) {
       C s = y[k];
       for (int c = 0; c < jb; ++c)
         sub_mul_conj(s, y[j0 + c], L[tri_off(j0 + c) + k]);
       y[k] = s;
     }
+    mark(4);
     __syncthreads();
+    mark(5);
   }
 }
 
@@ -1248,6 +1285,284 @@ chol_tiled_backward(typename Cplx<T>::type* __restrict__ x,
   TCLK_FLUSH
 }
 
+// The tiled substitution with a kept factor (packed Lw, diagonal dw): a
+// forward launch per 64-row block u, then a backward launch per 64-row
+// block u from the last (chol_plan.h subst_schedule).  Each launch's
+// critical path is the block that solves block u's diagonal block: the
+// strip of L it applies, its diagonal block and the kept diagonal are read
+// before the launch waits for its predecessor (a programmatic dependent
+// launch: the launch before lets it start at once, griddepcontrol), so
+// only x's 64 finished entries and the serial solve are left after the
+// wait; one warp solves the diagonal block, lane l rows l and l + 32, from
+// a copy in shared memory laid out so the lanes of a step read
+// neighbouring entries, with the reciprocals of the kept diagonal taken
+// ahead of the loop.  Every row's sums go in one fixed order, whatever B or
+// the grid, and no block reads what another block of its launch writes.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+// x as the launch ahead left it: read at the L2 cache, not through the
+// SM's L1, which may hold lines of x that a launch running beside this one
+// on the same SM read before the launch ahead wrote them
+template <typename C>
+__device__ __forceinline__ C ld_x(const C* p) {
+  return __ldcg(p);
+}
+
+// Column c of a 64 x 64 lower triangle stored by columns (rows c..63
+// contiguous): entry (r, c) at col_off(c) + r - c.
+__device__ __forceinline__ int col_off(int c) {
+  return c * kTB - c * (c - 1) / 2;
+}
+
+// Forward launch u, block (tile t = u + blockIdx.x, system blockIdx.y).  For
+// u >= 1 every tile t >= u subtracts L[t, u - 1] y_{u - 1} from its rows: a
+// warp per row (rows w, w + 8, .. of the tile for warp w), lane l reading
+// columns l and l + 32 of the strip (a row's 64 entries are contiguous in
+// the packed layout, so each load is one coalesced row segment), the two
+// products summed by the lane and the 32 lane sums by a butterfly of
+// shuffles.  Tile u then solves its diagonal block (stored by columns) and
+// writes y_u to x.  The rows' values come from rhs until launch 1 has
+// written them (tiles t >= 1 are first touched there), from x after.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_subst_forward(const typename Cplx<T>::type* __restrict__ Lw,
+                   const T* __restrict__ dw,
+                   const typename Cplx<T>::type* __restrict__ rhs,
+                   typename Cplx<T>::type* __restrict__ x, int M, int u) {
+  using C = typename Cplx<T>::type;
+  constexpr int kRows = kTB / kWarps;                 // rows a warp updates
+  __shared__ __align__(16) C Lc[kTB * (kTB + 1) / 2];   // by columns
+  __shared__ C yu[kTB];                               // tile u's rows
+  pdl_launch_dependents();
+  const int t = u + blockIdx.x;
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r0 = kTB * t, nr = min(kTB, M - r0);
+  const bool diag = t == u;
+  const C zero = {T(0), T(0)};
+  const C* A = Lw + b * tri_off(M);
+  C* y = x + b * M;
+  const C* src = (u <= 1 ? rhs : x) + b * M;
+  CLK_START
+  T dl0 = T(1), dl1 = T(1);  // warp 0 of the diagonal block: L[r, r]
+  if (diag) {                // staged while the update below runs
+    for (int r = warp; r < nr; r += kWarps)
+      for (int k = lane; k <= r; k += 32)
+        __pipeline_memcpy_async(Lc + col_off(k) + r - k,
+                                A + tri_off(r0 + r) + r0 + k, sizeof(C));
+    __pipeline_commit();
+    if (warp == 0) {
+      if (lane < nr) dl0 = dw[b * M + r0 + lane];
+      if (lane + 32 < nr) dl1 = dw[b * M + r0 + lane + 32];
+    }
+  }
+  const int rq = warp + kWarps * lane;                // lane q < kRows: row
+  const bool own = lane < kRows && rq < nr;
+  if (u > 0) {
+    const int c0 = kTB * (u - 1);                     // a full block
+    C la[kRows], lb[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const C* row = A + tri_off(r0 + min(warp + kWarps * q, nr - 1)) + c0;
+      la[q] = row[lane];
+      lb[q] = row[lane + 32];
+    }
+    CLK_MARK(2)
+    pdl_wait();              // y_{u - 1} and the rows' values are ready
+    CLK_MARK(5)
+    const C ya = ld_x(y + c0 + lane), yb = ld_x(y + c0 + lane + 32);
+    const C cur = own ? ld_x(src + r0 + rq) : zero;
+    C acc[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      acc[q].x = la[q].x * ya.x - la[q].y * ya.y;
+      acc[q].y = la[q].x * ya.y + la[q].y * ya.x;
+      acc[q].x = fma(lb[q].x, yb.x, acc[q].x);
+      acc[q].x = fma(-lb[q].y, yb.y, acc[q].x);
+      acc[q].y = fma(lb[q].x, yb.y, acc[q].y);
+      acc[q].y = fma(lb[q].y, yb.x, acc[q].y);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        acc[q].x += __shfl_xor_sync(kFull, acc[q].x, off);
+        acc[q].y += __shfl_xor_sync(kFull, acc[q].y, off);
+      }
+    C tot = zero;            // lane q < kRows: row rq's sum
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (lane == q) tot = acc[q];
+    if (own) {
+      C v = cur;
+      v.x -= tot.x;
+      v.y -= tot.y;
+      if (diag) yu[rq] = v;
+      else y[r0 + rq] = v;
+    }
+  } else {                   // launch 0: tile 0 alone, from rhs
+    pdl_wait();
+    CLK_MARK(5)
+    if (own) yu[rq] = ld_x(src + rq);
+  }
+  CLK_MARK(2)
+  if (diag) {                // L_uu y_u = yu: lane l holds rows l, l + 32
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    CLK_MARK(5)
+    if (warp == 0) {
+      const int l1 = lane + 32;
+      C v0 = lane < nr ? yu[lane] : zero;
+      C v1 = l1 < nr ? yu[l1] : zero;
+      const T inv0 = T(1) / dl0, inv1 = T(1) / dl1;
+#pragma unroll
+      for (int c = 0; c < kTB; ++c) {
+        if (c < nr) {
+          // column c's rows lane and lane + 32 (in bounds for every lane)
+          const C* col = Lc + col_off(c) - c;
+          const C a0 = col[lane], a1 = col[l1];
+          C yc;
+          if (c < 32) {
+            if (lane == c) scale(v0, inv0);
+            yc = shfl(v0, c);
+          } else {
+            if (lane == c - 32) scale(v1, inv1);
+            yc = shfl(v1, c - 32);
+          }
+          if (lane > c && lane < nr) sub_mul(v0, a0, yc);
+          if (l1 > c && l1 < nr) sub_mul(v1, a1, yc);
+        }
+      }
+      if (lane < nr) y[r0 + lane] = v0;
+      if (l1 < nr) y[r0 + l1] = v1;
+    }
+    CLK_MARK(1)
+  }
+  SCLK_FLUSH
+}
+
+// Backward launch u, block (64-column chunk c <= u, system blockIdx.y): as
+// chol_tiled_backward on the kept factor, the diagonal's reciprocals from
+// the kept diagonal dw (as the one-block kernel and the plain version read
+// it) and no "nan" pass.  Chunk c subtracts block u + 1's finished x from
+// its entries (row group jg takes rows jg, jg + 4, ..; the four groups'
+// sums subtracted in order), and the block of chunk u then solves L_uu^H
+// x_u = y_u from a copy of its diagonal block stored by rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_subst_backward(typename Cplx<T>::type* __restrict__ x,
+                    const typename Cplx<T>::type* __restrict__ Lw,
+                    const T* __restrict__ dw, int M, int u) {
+  using C = typename Cplx<T>::type;
+  constexpr int kGroups = kThreads / kTB;
+  __shared__ __align__(16) C Ld[kTB * (kTB + 1) / 2];   // by rows
+  __shared__ C part[kGroups][kTB];
+  __shared__ C ys[kTB];                               // chunk u's entries
+  pdl_launch_dependents();
+  const int c = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nbk = (M + kTB - 1) / kTB;
+  const int k0 = kTB * c, nkc = min(kTB, M - k0);
+  const bool diag = c == u;
+  const C zero = {T(0), T(0)};
+  C* y = x + b * M;
+  const C* A = Lw + b * tri_off(M);
+  CLK_START
+  T dl0 = T(1), dl1 = T(1);
+  if (diag) {                // staged while the update below runs
+    for (int r = warp; r < nkc; r += kWarps)
+      for (int k = lane; k <= r; k += 32)
+        __pipeline_memcpy_async(Ld + tri_off(r) + k,
+                                A + tri_off(k0 + r) + k0 + k, sizeof(C));
+    __pipeline_commit();
+    if (warp == 0) {
+      if (lane < nkc) dl0 = dw[b * M + k0 + lane];
+      if (lane + 32 < nkc) dl1 = dw[b * M + k0 + lane + 32];
+    }
+  }
+  const int kk = tid % kTB, jg = tid / kTB;
+  if (u + 1 < nbk) {
+    // x[k] -= sum_j conj(L[j, k]) x[j] over block u + 1's rows j
+    const int s0 = kTB * (u + 1), ns = min(kTB, M - s0);
+    C lj[kTB / kGroups];
+#pragma unroll
+    for (int q = 0; q < kTB / kGroups; ++q) {
+      const int j = min(jg + kGroups * q, ns - 1);
+      lj[q] = A[tri_off(s0 + j) + k0 + min(kk, nkc - 1)];
+    }
+    CLK_MARK(4)
+    pdl_wait();              // block u + 1's x and this chunk's y are ready
+    CLK_MARK(5)
+    const C cur = tid < nkc ? ld_x(y + k0 + tid) : zero;
+    C acc = zero;
+#pragma unroll
+    for (int q = 0; q < kTB / kGroups; ++q) {
+      const int j = jg + kGroups * q;
+      if (j < ns) add_mul_conj(acc, ld_x(y + s0 + j), lj[q]);
+    }
+    part[jg][kk] = acc;
+    __syncthreads();
+    if (tid < nkc) {
+      C v = cur;
+#pragma unroll
+      for (int r = 0; r < kGroups; ++r) {
+        v.x -= part[r][tid].x;
+        v.y -= part[r][tid].y;
+      }
+      if (diag) ys[tid] = v;
+      else y[k0 + tid] = v;
+    }
+  } else {                   // the last block: no x below it
+    pdl_wait();
+    CLK_MARK(5)
+    if (tid < nkc) ys[tid] = ld_x(y + k0 + tid);
+  }
+  CLK_MARK(4)
+  if (diag) {                // L_uu^H x_u = y_u: lane l holds rows l, l + 32
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    CLK_MARK(5)
+    if (warp == 0) {
+      const int l1 = lane + 32;
+      C v0 = lane < nkc ? ys[lane] : zero;
+      C v1 = l1 < nkc ? ys[l1] : zero;
+      const T inv0 = T(1) / dl0, inv1 = T(1) / dl1;
+#pragma unroll
+      for (int r = kTB - 1; r >= 0; --r) {
+        if (r < nkc) {
+          // row r's columns lane and lane + 32 (in bounds for every lane)
+          const C* lr = Ld + tri_off(r);
+          const C a0 = lr[lane], a1 = lr[l1];
+          C xr;
+          if (r < 32) {
+            if (lane == r) scale(v0, inv0);
+            xr = shfl(v0, r);
+          } else {
+            if (lane == r - 32) scale(v1, inv1);
+            xr = shfl(v1, r - 32);
+          }
+          // L^H[l, r] = conj(L[r, l])
+          if (lane < r) sub_mul_conj(v0, xr, a0);
+          if (l1 < r) sub_mul_conj(v1, xr, a1);
+        }
+      }
+      if (lane < nkc) y[k0 + lane] = v0;
+      if (l1 < nkc) y[k0 + l1] = v1;
+    }
+    CLK_MARK(3)
+  }
+  SCLK_FLUSH
+}
+
 // Both substitutions with a kept factor.  kMode 0 (the factor's resident
 // sizes): the packed factor is copied to shared memory with asynchronous
 // copies first, so the serial sweeps run at shared-memory latency; 1: the
@@ -1264,12 +1579,20 @@ chol_subst_kernel(const typename Cplx<T>::type* __restrict__ L,
   const long long b = blockIdx.x;
   const long long P = tri_off(M);
   const C* Lb = L + b * P;
+  [[maybe_unused]] const int tid = threadIdx.x;
+  CLK_START
+  auto mark = [&](int slot) {
+    (void)slot;
+    CLK_MARK(slot)
+  };
   if constexpr (kMode == 2) {
     C* y = x + b * M;
     for (int i = threadIdx.x; i < M; i += kThreads) y[i] = rhs[b * M + i];
     __syncthreads();
-    forward<T, true>(Lb, d + b * M, y, M);
-    backward<T, true>(Lb, d + b * M, y, M);
+    CLK_MARK(0)
+    forward<T, true>(Lb, d + b * M, y, M, mark);
+    backward<T, true>(Lb, d + b * M, y, M, mark);
+    SCLK_FLUSH
     return;
   } else {
     C* y = reinterpret_cast<C*>(smem_raw);
@@ -1286,10 +1609,13 @@ chol_subst_kernel(const typename Cplx<T>::type* __restrict__ L,
     }
     if (kMode == 0) __pipeline_wait_prior(0);
     __syncthreads();
+    CLK_MARK(0)
     const C* Lu = kMode == 0 ? Ls : Lb;
-    forward<T>(Lu, dinv, y, M);
-    backward<T>(Lu, dinv, y, M);
+    forward<T, false>(Lu, dinv, y, M, mark);
+    backward<T, false>(Lu, dinv, y, M, mark);
     for (int i = threadIdx.x; i < M; i += kThreads) x[b * M + i] = y[i];
+    CLK_MARK(6)
+    SCLK_FLUSH
   }
 }
 
@@ -1415,15 +1741,63 @@ int launch_factor_solve(const void* R, const void* rhs, void* x, void* L,
   return (int)cudaGetLastError();
 }
 
+enum SubstPath { kOneBlock = 0, kTiledSubst = 1 };
+
+// The tiled substitution's launch sequence (chol_plan.h subst_schedule),
+// over the systems in groups of at most kMaxGridY; stops at the first
+// launch that fails.
+template <typename T>
+int launch_subst_tiled(const void* L, const void* d, const void* rhs,
+                       void* x, int B, int M, cudaStream_t s) {
+  using C = typename Cplx<T>::type;
+  using chol_plan::Launch;
+  for (int b0 = 0; b0 < B; b0 += chol_plan::kMaxGridY) {
+    const int nb = min(chol_plan::kMaxGridY, B - b0);
+    const C* Lg = (const C*)L + (long long)b0 * tri_off(M);
+    const T* dg = (const T*)d + (long long)b0 * M;
+    const C* rg = (const C*)rhs + (long long)b0 * M;
+    C* xg = (C*)x + (long long)b0 * M;
+    bool first = true;
+    const int e = chol_plan::subst_schedule(M, [&](const Launch& l) {
+      // every launch but a group's first may start before the one ahead of
+      // it ends (its kernels wait for it before they read x)
+      cudaLaunchAttribute pdl;
+      pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      pdl.val.programmaticStreamSerializationAllowed = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(l.blocks, nb);
+      cfg.blockDim = dim3(kThreads);
+      cfg.stream = s;
+      cfg.attrs = &pdl;
+      cfg.numAttrs = first ? 0 : 1;
+      first = false;
+      const cudaError_t err =
+          l.kind == chol_plan::kForward
+              ? cudaLaunchKernelEx(&cfg, chol_subst_forward<T>, Lg,
+                                   dg, rg, xg, M, l.p)
+              : cudaLaunchKernelEx(&cfg, chol_subst_backward<T>, xg, Lg,
+                                   dg, M, l.p);
+      return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+    });
+    if (e) return e;
+  }
+  return 0;
+}
+
+// path: -1 the route's (chol_plan.h subst_route), or a SubstPath.
 template <typename T>
 int launch_subst(const void* L, const void* d, const void* rhs, void* x, int B,
-                 int M, void* stream) {
+                 int M, int path, void* stream) {
   using C = typename Cplx<T>::type;
   if (B <= 0) return 0;
-  if (M <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || path < -1 || path > kTiledSubst)
+    return (int)cudaErrorInvalidValue;
   const int e = prepare_all();
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
+  if (path < 0) path = chol_plan::subst_route(M);
+  if (path == kTiledSubst)
+    return launch_subst_tiled<T>(L, d, rhs, x, B, M, s);
   const size_t staged = ((size_t)M + tri_off(M)) * sizeof(C) + M * sizeof(T);
   const size_t vec = (size_t)M * (sizeof(C) + sizeof(T));
   if (path_of<T>(M) == kResidentPath && staged <= kSmemMax) {
@@ -1475,6 +1849,19 @@ int chol_tiled_clocks(unsigned long long* out) {
 #endif
 }
 
+// The same for the substitution with a kept factor (g_sclk).
+int chol_subst_clocks(unsigned long long* out) {
+#ifdef CHOL_PHASE_CLOCKS
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_sclk, sizeof(g_sclk));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {0};
+  return (int)cudaMemcpyToSymbol(g_sclk, zero, sizeof(g_sclk));
+#else
+  (void)out;
+  return -1;
+#endif
+}
+
 // Which path a system of order M takes: 0 resident (triangle in shared
 // memory), 1 tiled (a sequence of launches spreading each system over the
 // card); -1 for M < 1.
@@ -1506,15 +1893,20 @@ int chol_factor_solve_c128(const void* R, const void* rhs, void* x, void* L,
                                      path, stream);
 }
 
-// x = (L L^H)^-1 rhs with a factor from chol_factor_solve_c64.
+// x = (L L^H)^-1 rhs with a factor from chol_factor_solve_c64 (L the
+// packed triangle, d its real diagonal).  path: -1 for chol_subst_route's
+// choice, 0 the one-block kernel (one launch, a block a system), 1 the
+// tiled substitution (chol_subst_plan's launches).  Returns the
+// cudaError_t of the launches (0 on success; the tiled substitution's
+// launches stop at the first that fails).
 int chol_subst_c64(const void* L, const void* d, const void* rhs, void* x,
-                   int B, int M, void* stream) {
-  return launch_subst<float>(L, d, rhs, x, B, M, stream);
+                   int B, int M, int path, void* stream) {
+  return launch_subst<float>(L, d, rhs, x, B, M, path, stream);
 }
 
 int chol_subst_c128(const void* L, const void* d, const void* rhs, void* x,
-                    int B, int M, void* stream) {
-  return launch_subst<double>(L, d, rhs, x, B, M, stream);
+                    int B, int M, int path, void* stream) {
+  return launch_subst<double>(L, d, rhs, x, B, M, path, stream);
 }
 
 }  // extern "C"

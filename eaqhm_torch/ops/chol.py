@@ -14,6 +14,14 @@ Two pivot rules (``mode``):
   "nan"    a pivot <= 0 or NaN makes that system's x NaN, as
            jnp.linalg.cholesky does (solve_method "cholesky").
 
+The substitution with a kept factor runs on one of two kernels, chosen
+from M by measurement on an H100 (``subst_path_for``,
+kernels/csrc/chol_plan.h ``subst_route``): "one_block", a block of 256
+threads a system in one launch, at one row block (M <= 64), or "tiled",
+each system spread over the card by a forward launch per 64 rows (a block
+per 64-row tile below the block being solved) and the tiled path's
+backward launches (``subst_plan``), at every larger M.
+
 Bound on an H100: M^3/6 complex multiply-adds per system against M(M+1)/2
 complex reads (one triangle of R), so at the main path's M (130-194) the
 arithmetic sets the floor in both types.  Blocked right-looking updates in
@@ -56,6 +64,7 @@ _SYMBOLS = {torch.complex64: ("chol_factor_solve_c64", "chol_subst_c64"),
             torch.complex128: ("chol_factor_solve_c128", "chol_subst_c128")}
 MODES = ("guard", "nan")
 PATHS = ("resident", "tiled")
+SUBST_PATHS = ("one_block", "tiled")
 _GUARD = 1e-30
 # The counts below are shared by every thread and updated under _lock; the
 # launches recorded during a CUDA graph capture are kept per thread (_tls).
@@ -213,6 +222,43 @@ def launches_per_call(M: int, path: str, B: int = 1) -> int:
     return tiled_plan(M, B).launches if path == "tiled" else 1
 
 
+class SubstPlan(NamedTuple):
+    """One tiled ``chol_subst`` call of B systems as its launcher makes it
+    (kernels/csrc/chol_plan.h ``subst_schedule``): device launches, and
+    blocks of the forward and of the backward launches over the call."""
+    launches: int
+    forward_blocks: int
+    backward_blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def subst_plan(M: int, B: int = 1) -> SubstPlan:
+    """The tiled substitution's plan of a call of B systems of order
+    M >= 1, read from the plan's host build (no CUDA toolkit needed)."""
+    out = (ctypes.c_longlong * 2)()
+    launches = build.load_host("chol_plan").chol_subst_plan(M, B, out)
+    if launches < 0:
+        raise ValueError(f"chol_subst: no tiled plan for M={M} B={B}")
+    return SubstPlan(launches, *out)
+
+
+@functools.lru_cache(maxsize=1024)
+def subst_path_for(M: int) -> str:
+    """The substitution path a call of order M >= 1 takes (one of
+    SUBST_PATHS): the route of kernels/csrc/chol_plan.h, read from the
+    plan's host build (no CUDA toolkit needed)."""
+    r = build.load_host("chol_plan").chol_subst_route(M)
+    if r < 0:
+        raise ValueError(f"chol_subst: no route for M={M}")
+    return SUBST_PATHS[r]
+
+
+def subst_launches_per_call(M: int, path: str, B: int = 1) -> int:
+    """Device launches of one ``chol_subst`` call of B systems of order M
+    on a substitution path: one, or on "tiled" ``subst_plan``'s."""
+    return subst_plan(M, B).launches if path == "tiled" else 1
+
+
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
     """Call one launcher of the library on the current stream of dev, with
     dev the current device (a stream belongs to one device)."""
@@ -265,16 +311,25 @@ def chol_solve(R: torch.Tensor, rhs: torch.Tensor, mode: str = "nan",
     return (x, Factor(L, d)) if keep_factor else x
 
 
-def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
-    """x = (L L^H)^-1 rhs with a factor kept by ``chol_solve``: one kernel
-    launch on CUDA (counted in ``chol_subst.launches``, (B, M, path) in
-    ``chol_subst.shapes`` with the factor's path: at "resident" orders the
-    kernel stages the factor in shared memory, otherwise it reads it from
-    device memory, with y in shared memory where it fits), the plain
-    triangular solves on the CPU."""
+def chol_subst(f: Factor, rhs: torch.Tensor,
+               path: Optional[str] = None) -> torch.Tensor:
+    """x = (L L^H)^-1 rhs with a factor kept by ``chol_solve``.  On CUDA
+    one of two hand kernels, by ``subst_path_for(M)`` (path, one of
+    SUBST_PATHS, takes the other, to measure one against the other):
+    "one_block", one launch of a block a system (at the resident orders
+    the factor staged in shared memory, otherwise read from device memory
+    with y in shared memory where it fits), or "tiled", each system spread
+    over the card by ``subst_launches_per_call`` launches (a forward and a
+    backward launch per 64 rows; nothing allocated but x, so a CUDA graph
+    captures the call whole).  The call counts once in
+    ``chol_subst.launches``, with (B, M, path) in ``chol_subst.shapes``.
+    On the CPU the plain triangular solves."""
     if rhs.dtype != f.L.dtype or rhs.dim() != 2 or rhs.device != f.L.device:
         raise ValueError("chol_subst: rhs must be [B, M] of the factor's "
                          "dtype and device")
+    if path is not None and path not in SUBST_PATHS:
+        raise ValueError(f"chol_subst: path must be one of {SUBST_PATHS}, "
+                         f"got {path!r}")
     if _device_of(rhs) == "cpu":
         with _lock:
             chol_subst.plain_calls += 1
@@ -288,9 +343,12 @@ def chol_subst(f: Factor, rhs: torch.Tensor) -> torch.Tensor:
                          f"[{B}, {M}] and contiguous tensors")
     x = torch.empty_like(rhs)
     if B:
+        if path is None:
+            path = subst_path_for(M)
         _launch(_SYMBOLS[rhs.dtype][1], rhs.device, f.L.data_ptr(),
-                f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, M)
-        _count(chol_subst, (B, M, path_for(rhs.dtype, M)))
+                f.d.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, M,
+                SUBST_PATHS.index(path))
+        _count(chol_subst, (B, M, path))
     return x
 
 

@@ -352,3 +352,60 @@ def test_cuda_tiled_path_in_a_cuda_graph(dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(x, chol.chol_solve(R2, b2, mode="nan", path="tiled"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 2e-5),
+                                       (torch.complex128, 1e-12)])
+def test_cuda_tiled_subst_matches_plain_version(dtype, tol):
+    """The substitution with a kept factor on both paths (the tiled one
+    around its 64-row blocks and at the wide orders, the one-block kernel
+    beside it), factors of both rules: each against the plain version,
+    and the two paths against each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for B, M in ((3, 1), (3, 64), (3, 65), (2, 128), (5, 129), (4, 300),
+                 (8, 770), (2, 1950)):
+        R, b = _hpd_cuda(B, M, dtype, seed=300 + M)
+        b2 = (b * (0.5 - 1j)).contiguous()
+        for mode in chol.MODES:
+            _, f = chol.chol_solve(R, b, mode=mode, keep_factor=True)
+            xr = chol.chol_subst_reference(chol.unpack_factor(f), b2)
+            n = chol.chol_subst.launches
+            xs = {p: chol.chol_subst(f, b2, path=p)
+                  for p in chol.SUBST_PATHS}
+            torch.cuda.synchronize()
+            assert chol.chol_subst.launches == n + 2
+            assert chol.chol_subst.shapes[-1] == (B, M, "tiled")
+            for p, x in xs.items():
+                err = ((x - xr).abs().max() / xr.abs().max()).item()
+                assert err <= tol, (B, M, mode, p, err)
+            d = (xs["tiled"] - xs["one_block"]).abs().max()
+            assert (d / xr.abs().max()).item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cuda_tiled_subst_in_a_cuda_graph(dtype):
+    """A tiled substitution captured into a CUDA graph: 2 ceil(M / 64)
+    kernel nodes (chol.subst_plan), each replay the eager call's x bit for
+    bit, and a replay after rhs changes solves the new right-hand side."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from torch_graph_nodes import captured, kernel_nodes
+    M = 300
+    R, b = _hpd_cuda(4, M, dtype, seed=11)
+    _, f = chol.chol_solve(R, b, mode="nan", keep_factor=True)
+    x0 = chol.chol_subst(f, b, path="tiled")
+    graph, x = captured(lambda: chol.chol_subst(f, b, path="tiled"))
+    chol.take_captured()
+    assert kernel_nodes(graph) == chol.subst_launches_per_call(
+        M, "tiled", 4) == chol.subst_plan(M, 4).launches == 10
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0)
+    b.copy_(b * (0.25 + 2j))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, chol.chol_subst(f, b, path="tiled"))

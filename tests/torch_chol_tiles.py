@@ -15,6 +15,15 @@ subtracted in group order, the diagonal block solved from its last row.
 The tile split of the trailing update does not enter: every entry of a
 tile is its own sum.  Vectorised over the batch and over the entries of a
 step; the CPU tests hold it against ``ops.chol``'s plain versions.
+
+``subst`` models the tiled substitution with a kept factor
+(chol_subst_forward, then chol_tiled_backward on the kept factor) the same
+way: the forward sweep per 64-row block u, each row of the tiles below it
+taking L[t, u - 1] y_{u - 1} as the kernel sums it (lane l's two products,
+columns l and l + 32, then the 32 lane sums by a butterfly: halves added
+16, 8, 4, 2, 1 apart) subtracted at once, block u's diagonal block solved
+column by column with the kept diagonal's reciprocals; then the backward
+sweep of ``factor_solve`` with the kept diagonal.
 """
 import torch
 
@@ -109,7 +118,21 @@ def factor_solve(R: torch.Tensor, b: torch.Tensor, mode: str = "nan"):
             p += 1
     L = A
     d = torch.diagonal(L, dim1=-2, dim2=-1).real.clone()
-    x = y
+    x = _backward(y, L, d)
+    if mode == "nan":
+        bad = torch.isnan(d).any(dim=1)
+        x[bad] = complex(float("nan"), float("nan"))
+        d[bad] = float("nan")
+    return x, L, d
+
+
+def _backward(x: torch.Tensor, L: torch.Tensor, d: torch.Tensor):
+    """L^H x = y in place in x (y on entry): per 64-row block u from the
+    last, each chunk's sum over block u + 1's rows in four row groups
+    subtracted in group order, then block u's diagonal block from its last
+    row, the reciprocals of d."""
+    M = x.shape[1]
+    nb = -(-M // TILE)
     for u in range(nb - 1, -1, -1):
         k0 = TILE * u
         if u + 1 < nb:                      # block u + 1's finished rows
@@ -131,14 +154,54 @@ def factor_solve(R: torch.Tensor, b: torch.Tensor, mode: str = "nan"):
         v = x[:, k0:k0 + nk].clone()
         Ld = L[:, k0:k0 + nk, k0:k0 + nk]
         for r in range(nk - 1, -1, -1):
-            v[:, r] = v[:, r] * (1.0 / Ld[:, r, r].real)
+            v[:, r] = v[:, r] * (1.0 / d[:, k0 + r])
             v[:, :r] = v[:, :r] - v[:, r, None] * Ld[:, r, :r].conj()
         x[:, k0:k0 + nk] = v
-    if mode == "nan":
-        bad = torch.isnan(d).any(dim=1)
-        x[bad] = complex(float("nan"), float("nan"))
-        d[bad] = float("nan")
-    return x, L, d
+    return x
+
+
+def _lane_sum(p: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum of one row's 64 products p [.., 64]: lane l adds
+    products l and l + 32, then a butterfly of shuffles adds the lane sums
+    16, 8, 4, 2 and 1 lanes apart."""
+    p = p[..., :32] + p[..., 32:]
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return p[..., 0]
+
+
+def subst(L: torch.Tensor, d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = (L L^H)^-1 b as the tiled substitution computes it, with the kept
+    factor: L full lower [B, M, M] (its diagonal not read), d its real
+    diagonal [B, M]; complex128."""
+    B, M = b.shape
+    nb = -(-M // TILE)
+    y = b.clone()
+    for u in range(nb):
+        k0 = TILE * u
+        if u > 0:                # every tile t >= u takes block u - 1
+            c0 = k0 - TILE
+            p = L[:, k0:, c0:k0] * y[:, None, c0:k0]
+            y[:, k0:] = y[:, k0:] - _lane_sum(p)
+        nk = min(TILE, M - k0)
+        v = y[:, k0:k0 + nk].clone()
+        for c in range(nk):
+            v[:, c] = v[:, c] * (1.0 / d[:, k0 + c])
+            v[:, c + 1:] = v[:, c + 1:] - L[:, k0 + c + 1:k0 + nk,
+                                            k0 + c] * v[:, c, None]
+        y[:, k0:k0 + nk] = v
+    return _backward(y, L, d)
+
+
+def subst_launch_blocks(M: int) -> list:
+    """(kind, blocks) of each launch of one tiled substitution of one
+    system: per 64-row block u a forward launch (the first block's alone,
+    then the tiles t >= u), then per 64-row block from the last a backward
+    launch of the chunks it takes."""
+    n = -(-M // TILE)
+    return ([("forward", 1)] + [("forward", n - u) for u in range(1, n)]
+            + [("backward", u + 1) for u in range(n - 1, -1, -1)])
 
 
 def launches(M: int) -> int:

@@ -20,8 +20,18 @@ replaces the default cells, e.g. the stress configuration's batches
 (c128:256x386 c128:128x514 c64:512x386 c64:256x514); a cell may name a
 path (c64:512x194:tiled), otherwise the kernel routes it.
 
+--subst cells (the same form; a cell may name a substitution path,
+c64:8x1950:one_block) time instead the substitution with a kept factor
+(a "guard" factor from the routed factor + solve): its kernel time in the
+plain and the clocked build, and thread 0's cycles of each block by phase:
+the load (the staged factor, rhs, 1 / diag), the forward and backward
+diagonal-block solves, the forward row and backward column updates, the
+waits (barriers, and a tiled launch's wait for the launch ahead of it),
+the output; summed over the call's blocks, per block and as shares.
+
     python3 tools/bench_chol_phases.py [--out chiprun_out/chol_phases.json]
                                        [--shapes c128:BxM[:path] ...]
+                                       [--subst c64:BxM[:path] ...]
 """
 import argparse
 import ctypes
@@ -34,7 +44,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path.append(ROOT)
 from eaqhm_torch.kernels import build  # noqa: E402
 from eaqhm_torch.ops import chol  # noqa: E402
 
@@ -80,15 +90,83 @@ def smi(query):
                           text=True).stdout.strip().splitlines()[0]
 
 
+SUBST_PHASES = ("load", "forward_diagonal", "forward_rows",
+                "backward_diagonal", "backward_columns", "waits", "output")
+
+
+def subst_rows(lib, cells):
+    """The substitution's phase clocks at each (dtype, B, M, path)."""
+    clk = (ctypes.c_ulonglong * 8)()
+    rows = []
+    for dt, B, M, path in cells:
+        cname = str(dt).split(".")[-1]
+        sym = getattr(lib, "chol_subst_" + cname.replace("complex", "c"))
+        R, b = hpd(B, M, dt)
+        _, f = chol.chol_solve(R, b, mode="guard", keep_factor=True)
+        del R
+        x = torch.empty_like(b)
+        path = path or chol.subst_path_for(M)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def clocked():
+            err = sym(f.L.data_ptr(), f.d.data_ptr(), b.data_ptr(),
+                      x.data_ptr(), B, M, chol.SUBST_PATHS.index(path),
+                      stream)
+            assert err == 0, err
+
+        row = {"entry": "chol_subst", "dtype": cname, "B": B, "M": M,
+               "path": path, "kernel_ms": cuda_ms(
+                   lambda: chol.chol_subst(f, b, path=path))}
+        read = lib.chol_subst_clocks
+        clocked()
+        torch.cuda.synchronize()
+        assert read(clk) == 0                        # zero the counters
+        row["clocked_kernel_ms"] = cuda_ms(clocked)
+        row["sm_clock_under_load"] = smi("clocks.sm")
+        assert read(clk) == 0
+        blocks = clk[7]
+        total = sum(clk[i] for i in range(7))
+        row["blocks"] = blocks
+        row["cycles_per_block"] = {p: clk[i] / blocks
+                                   for i, p in enumerate(SUBST_PHASES)}
+        row["share"] = {p: clk[i] / total
+                        for i, p in enumerate(SUBST_PHASES)}
+        xr = chol.chol_subst_reference(chol.unpack_factor(f), b)
+        row["max_rel_err"] = ((x - xr).abs().max()
+                              / xr.abs().max()).item()
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "chol_phases.json"))
     ap.add_argument("--shapes", nargs="+", default=None,
                     help="cells as c64:BxM or c128:BxM")
+    ap.add_argument("--subst", nargs="+", default=None,
+                    help="substitution cells as c64:BxM[:path]")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_chol_phases: no CUDA device")
+    types = {"c64": torch.complex64, "c128": torch.complex128}
+    if args.subst:
+        cells = []
+        for cell in args.subst:
+            t, bm, *route = cell.split(":")
+            B, M = (int(v) for v in bm.split("x"))
+            cells.append((types[t], B, M, route[0] if route else None))
+        lib = build.load("chol_solve", ("CHOL_PHASE_CLOCKS",))
+        report = {"card": smi("name,power.limit"),
+                  "torch": torch.__version__,
+                  "rows": subst_rows(lib, cells)}
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+        print(report["card"])
+        return
     shapes = {dt: [(B, M, None) for B, M in cells]
               for dt, cells in SHAPES.items()}
     if args.shapes:

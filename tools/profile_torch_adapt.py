@@ -2,13 +2,16 @@
 
 Runs the port's main path for each configuration asked, on the golden SA19
 resynthesis of tests/golden/sa19_golden.npz (female preset; --signal sa19,
-the default) or on config 4's stress signal (benchmarks.stress_signal(),
-60 s, male preset, max_adaptations=10; --signal stress): ``--warm`` calls
+the default), on config 4's stress signal (benchmarks.stress_signal(),
+60 s, male preset, max_adaptations=10; --signal stress) or on the wide
+phase's 48 kHz tone of chip_smoke.py (benchmarks.stress_signal(0.15,
+48000, 55.0), gender (50, 180), max_adaptations=2, the top tier at
+M = 1950; --signal wide48): ``--warm`` calls
 to warm up (the first builds kernels and, for the fused loop, captures its
 graph), ``--timed`` warm calls without the profiler, then one under
 torch.profiler.  A configuration is DTYPE[:SOLVE_METHOD][:fused] (e.g.
-float32:block_inverse, float64:fused).  Prints, per configuration: warm
-wall seconds (unprofiled, each call), the profiled call's wall, device busy
+float32:block_inverse, float64:fused).  The kernels are built first.
+Prints, per configuration: the first call's wall seconds, warm wall seconds (unprofiled, each call), the profiled call's wall, device busy
 seconds and idle share against both walls, per-adaptation seconds, device
 time per layer span (eaqhm/pitch, eaqhm/fit, eaqhm/solve, eaqhm/tracks;
 graph replays run no spans), the tracks span per adaptation (its device
@@ -22,9 +25,12 @@ and the tracks stage (engine._Adapter._finish) and read just after it
 stage is kept beside the call's own peak.  The whole report goes to
 <out>.json and, with --trace, a Chrome trace per configuration to
 <out>_<config>.json (default <out>: build/profile, which .gitignore lists).
+With PYTHONPATH naming another checkout, that checkout's package runs (this
+one is appended to sys.path after it).
 
     python3 tools/profile_torch_adapt.py [--configs float64 float32 ...]
-                                         [--signal sa19|stress] [--peaks]
+                                         [--signal sa19|stress|wide48]
+                                         [--peaks]
                                          [--warm N] [--timed N]
                                          [--out OUT_PREFIX] [--trace]
 """
@@ -42,7 +48,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path.append(ROOT)
 import eaqhm_torch  # noqa: E402
 from eaqhm_torch import benchmarks  # noqa: E402
 
@@ -56,8 +62,9 @@ LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 def config_of(spec, signal):
     parts = spec.split(":")
-    kw = ({"gender": "female"} if signal == "sa19"
-          else {"gender": "male", "max_adaptations": 10})
+    kw = {"sa19": {"gender": "female"},
+          "stress": {"gender": "male", "max_adaptations": 10},
+          "wide48": {"gender": (50.0, 180.0), "max_adaptations": 2}}[signal]
     kw["dtype"] = parts[0]
     for p in parts[1:]:
         if p == "fused":
@@ -134,9 +141,12 @@ def stage_peaks(sig, fs, cfg):
 
 def profile_config(sig, fs, spec, args):
     cfg = config_of(spec, args.signal)
+    first = None
     for _ in range(args.warm):
+        t0 = time.time()
         eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        first = time.time() - t0 if first is None else first
     warm = []
     for _ in range(args.timed):
         t0 = time.time()
@@ -167,7 +177,7 @@ def profile_config(sig, fs, spec, args):
     n_tracks = len(tracks_launches)
     out = {
         "config": spec, "signal": args.signal, "srer": res.srer,
-        "warm_wall_s": warm, "profiled_wall_s": wall,
+        "first_call_s": first, "warm_wall_s": warm, "profiled_wall_s": wall,
         "device_busy_s": busy,
         # against the median unprofiled wall (the profiler slows the host)
         "device_idle_share": 1.0 - busy / sorted(warm)[len(warm) // 2],
@@ -195,7 +205,8 @@ def profile_config(sig, fs, spec, args):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="+", default=["float64", "float32"])
-    ap.add_argument("--signal", choices=("sa19", "stress"), default="sa19")
+    ap.add_argument("--signal", choices=("sa19", "stress", "wide48"),
+                    default="sa19")
     ap.add_argument("--peaks", action="store_true",
                     help="also the peak device memory of each stage")
     ap.add_argument("--warm", type=int, default=2)
@@ -207,13 +218,21 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_adapt: no CUDA device")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    from eaqhm_torch.kernels import build      # built before the first call
+    for name in build.KERNELS:
+        build.load(name)
+    fs = benchmarks.FS
     if args.signal == "sa19":
         sig = np.load(os.path.join(ROOT, "tests", "golden",
                                    "sa19_golden.npz"))["s_recon"]
+    elif args.signal == "wide48":
+        fs = 48000
+        sig = benchmarks.stress_signal(0.15, fs, 55.0)
     else:
         sig = benchmarks.stress_signal()
     report = {"card": _card(), "torch": torch.__version__,
-              "runs": [profile_config(sig, benchmarks.FS, c, args)
+              "package": os.path.dirname(eaqhm_torch.__file__),
+              "runs": [profile_config(sig, fs, c, args)
                        for c in args.configs]}
     with open(args.out + ".json", "w") as f:
         json.dump(report, f, indent=1)
