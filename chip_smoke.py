@@ -134,13 +134,28 @@
    kernel's ms beside the plain version's and its bound, its registers,
    spilled bytes (asserted 0) and blocks a SM; kernel ms from a CUDA
    graph of launches replayed (the device's time, no host gap).
-15. One JSON line of the kernels (each kernel at every launch the paths
+15. Pitch phase: every path above asserts that both pitch kernels
+   (swipe_loudness, swipe_pick: ops.pitch) launched, swipe_loudness once
+   per window size of each call, the batch engine's paths one call a
+   batch, and that the plain version served nothing; a plan's later calls
+   (the warm calls) build no device plan and no DFT basis, so the stage
+   uploads nothing.  Then both kernels against their plain versions at
+   every (plan, batch, type) the paths ran, on seeded voices of that shape
+   (tests/torch_pitch_cases.py), from the same DFT products: Ln to 1e-12 /
+   1e-5 of its largest entry, swipe_pick on the plain version's Si the same
+   f0 grid point at every step and strength to the same tolerance, the
+   kernel route against the plain route with the f0 steps that moved to
+   another grid point counted (near ties; at most 0.1% of the steps, in
+   float64 only where the strength agrees); per plan each kernel's ms beside
+   the plain version's and its bound (CUDA graphs replayed).
+16. One JSON line of the kernels (each kernel at every launch the paths
    made: the Cholesky factor + solve and the substitution with a kept
    factor as two entries, the substitution's device launches a call
    counted from a captured call's graph nodes, both its paths timed at
    every shape the paths made beside torch.cholesky_solve and the two
    triangular solves; the block inverse per type at every call, fit_basis and fit_gram
-   over every shape, the tracks kernels over every shape, launches counted
+   over every shape, the tracks kernels over every shape, the pitch kernels
+   over every plan, launches counted
    per entry point and per path, counts set to 0 just before each path and
    read just after), the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
@@ -148,8 +163,8 @@
     python3 chip_smoke.py --phases stress presets    # some phases only
 
 runs the setup and the phases named (base: 2-7; corpus: 8; stress: 9;
-presets: 10; corpus64: 11; wide: 12), the fit and tracks phases over their
-launches and a kernels line over them; the default is all of them.  Any
+presets: 10; corpus64: 11; wide: 12), the fit, tracks and pitch phases over
+their launches and a kernels line over them; the default is all of them.  Any
 failure raises and exits non-zero before the last line.
 Without CUDA, or outside a checkout of the repository, it fails.
 """
@@ -239,6 +254,12 @@ FIT_BEFORE_S = {"float32": "1.3488", "float64": "1.8904"}
 # shapes (G, n, K, L, step, type), track_srer shapes, launches in graph
 # replays)
 TRACK_RUNS = {}
+# pitch kernels' launches by path: name -> (swipe_loudness shapes,
+# swipe_pick shapes, (device plans, bases) built); and the builds' counts
+# when the counts were last set to 0
+PITCH_RUNS = {}
+PITCH_BUILDS = [0, 0]
+PITCH_TOL = {"float64": 1e-12, "float32": 1e-5}
 # the tracks kernels against their plain version (of the largest entry of
 # each output): float64 to rounding; float32 composes M's affine maps, the
 # in-segment phase sum and the K-sum in other orders (a few float32 ulps of
@@ -741,6 +762,7 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
     bi_calls, rec["bi"], rec["bi_replayed"] = take_bi(name)
     rec["fit"] = take_fit(name)[1]
     rec["tracks"] = len(take_tracks(name)[1])
+    rec["pitch"] = take_pitch(name)[2]
     assert len(shapes[0]) == rec["launches"]
     assert len(shapes[1]) == rec["subst"]
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
@@ -753,6 +775,7 @@ def run_path(torch, chol, eaqhm_torch, sig, name, **kw):
         warm_s.append(time.time() - t0)
     _, fit_warm, _, fit_replayed = take_fit(name + " (warm)", keep=False)
     tr_warm = take_tracks(name + " (warm)", keep=False)
+    take_pitch(name + " (warm)", keep=False, warm=True, calls=1)
     from eaqhm_torch.ops import block_inverse
     rec["warm"] = {"launches": chol.chol_solve.launches,
                    "replayed": chol.chol_solve.replayed,
@@ -917,14 +940,18 @@ def chol_shapes(chol):
 
 
 def reset_counts(chol):
-    """Every kernel count of the fit, the solve and the tracks stage to 0:
-    the fit kernels', the Cholesky kernel's, the block inverse's and the
-    tracks kernels'."""
-    from eaqhm_torch.ops import block_inverse, fit, tracks
+    """Every kernel count of the fit, the solve, the tracks stage and the
+    pitch stage to 0: the fit kernels', the Cholesky kernel's, the block
+    inverse's, the tracks kernels' and the pitch kernels'; and the pitch
+    stage's builds (device plans, DFT bases) so far, for take_pitch."""
+    from eaqhm_torch.models import swipe
+    from eaqhm_torch.ops import block_inverse, fit, pitch, stft, tracks
     chol.reset_counts()
     block_inverse.reset_counts()
     fit.reset_counts()
     tracks.reset_counts()
+    pitch.reset_counts()
+    PITCH_BUILDS[:] = [swipe.device_plans_built, stft.bases_built]
 
 
 def take_fit(name, keep=True):
@@ -960,6 +987,35 @@ def take_tracks(name, keep=True):
            sp.replayed + sy.replayed + sr.replayed)
     if keep:
         TRACK_RUNS[name] = rec
+    return rec
+
+
+def take_pitch(name, keep=True, warm=False, calls=None):
+    """The pitch kernels' launches since the counts were set to 0: both
+    launched, swipe_loudness once per window size of each swipe_pick
+    call, none served by the plain version; with calls, that many pitch
+    calls (the batch engine: one per batch); with warm (a plan's later
+    call), no device plan and no DFT basis built, so the stage uploaded
+    nothing (the signal is uploaded before it).  Kept in PITCH_RUNS under
+    name (keep) for the pitch phase and the kernels line."""
+    from eaqhm_torch.models import swipe
+    from eaqhm_torch.ops import pitch, stft
+    lo, pk = pitch.swipe_loudness, pitch.swipe_pick
+    assert pitch.plain_calls() == 0, (name, pitch.plain_calls())
+    assert lo.launches > 0 and pk.launches > 0, (name, lo.launches,
+                                                 pk.launches)
+    assert lo.launches == sum(sh[3] for sh in pk.shapes), (
+        name, lo.launches, pk.shapes)
+    assert len(pk.shapes) == pk.launches
+    if calls is not None:
+        assert pk.launches == calls, (name, pk.launches, calls)
+    built = (swipe.device_plans_built - PITCH_BUILDS[0],
+             stft.bases_built - PITCH_BUILDS[1])
+    if warm:
+        assert built == (0, 0), (name, built)
+    rec = (list(lo.shapes), list(pk.shapes), built)
+    if keep:
+        PITCH_RUNS[name] = rec
     return rec
 
 
@@ -1107,6 +1163,7 @@ def bi_fixture_phase(torch, chol, eaqhm_torch, pref):
     calls, launches, _ = take_bi("float64_block_inverse", expect=True)
     take_fit("float64_block_inverse")
     take_tracks("float64_block_inverse")
+    take_pitch("float64_block_inverse")
     assert chol.chol_solve.launches == 0
     d_srer = float(np.max(np.abs(np.asarray(res.srer) - pref[p + "srer"])))
     d_wave = float(np.max(np.abs(res.s_recon - pref[p + "s_recon"])))
@@ -1162,6 +1219,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
     assert chol.chol_solve.plain_calls == chol.chol_subst.plain_calls == 0
     take_fit("float64_streams")
     take_tracks("float64_streams")
+    take_pitch("float64_streams")
     assert set(four.failed) == {len(corpus)}, four.failed
     check_streams(four, seq, idx, "streams 4 workers")
     rates["4 workers"] = four.audio_seconds_per_second
@@ -1181,6 +1239,7 @@ def streams_phase(torch, chol, eaqhm_torch, streams, corpus):
         assert chol.chol_solve.replayed > 0
         assert take_fit(f"float64_fused_streams_{rep}", keep=False)[3] > 0
         assert take_tracks(f"float64_fused_streams_{rep}", keep=False)[3] > 0
+        take_pitch(f"float64_fused_streams_{rep}", keep=False, warm=True)
     log(f"streams: audio-s/s over {len(corpus)} utterances ({audio:.1f} s "
         f"of audio, float64, female, max_adaptations=6): "
         f"{ {k: round(v, 3) for k, v in rates.items()} }; per worker "
@@ -1211,6 +1270,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     assert chol.chol_solve.plain_calls == 0
     take_fit("float64_batch")
     take_tracks("float64_batch")
+    take_pitch("float64_batch", calls=1)
     t0 = time.time()
     warm = batch_engine.analyze_batch(sigs, FS, cfg64, device="cuda")
     warm_s = time.time() - t0
@@ -1237,6 +1297,7 @@ def batch_phase(torch, chol, eaqhm_torch, batch_engine, corpus, ref, seq,
     sh32 = chol_shapes(chol)
     take_fit("float32_batch")
     take_tracks("float32_batch")
+    take_pitch("float32_batch", calls=1)
     bi32 = take_bi("float32_batch", expect=True)
     d32 = out32.final_srer - out.final_srer
     log(f"batch float32 (default solve): final SRER "
@@ -1289,6 +1350,7 @@ def mesh_phase(torch, chol, eaqhm_torch, batch_engine, corpus_mod, mesh_mod,
         shapes = chol_shapes(chol)
         take_fit("float64_mesh")
         take_tracks("float64_mesh")
+        take_pitch("float64_mesh", calls=1)
         d_srer = float(np.max(np.abs(out.srer - out_none.srer)))
         d_wave = float(np.max(np.abs(out.s_recon - out_none.s_recon)))
         log(f"mesh {tuple(mesh.shape)} (NCCL, world 1) vs mesh=None: "
@@ -1510,6 +1572,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
         bi_calls, bi_n, _ = take_bi(f"{dt}_stress", expect=dt == "float32")
         take_fit(f"{dt}_stress")
         tr = take_tracks(f"{dt}_stress")
+        take_pitch(f"{dt}_stress", calls=1)
         peak = stage_peak.call
         per = spans.per_adaptation()
         assert len(per) == len(res.srer) == len(res.metrics), (len(per),
@@ -1572,6 +1635,7 @@ def stress_phase(torch, chol, eaqhm_torch, engine, benchmarks, pref):
     shapes["float64_stress_slice"] = chol_shapes(chol)
     take_fit("float64_stress_slice")
     take_tracks("float64_stress_slice")
+    take_pitch("float64_stress_slice")
     log(f"stress slice (samples {a}-{b}, max_adaptations="
         f"{cfg.max_adaptations}): {time.time() - t0:.3f} s, tiers "
         f"{res.tiers}, srer {res.srer}")
@@ -1614,6 +1678,7 @@ def presets_phase(torch, chol, eaqhm_torch, filters, benchmarks, sig,
         bi = take_bi(name, expect=path.startswith("float32"))
         take_fit(name)
         take_tracks(name)
+        take_pitch(name)
         log(f"presets {g} {what}: {el:.3f} s, tiers {res.tiers}, srer "
             f"{res.srer}, launches {len(sh[0])} + {len(sh[1])} (B, M) "
             f"{dict(Counter(x[:2] for x in sh[0]))}, block_inverse {bi[1]} "
@@ -1653,7 +1718,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     assert line["path"] == "sequential_per_utterance", line
     assert line["kernels"]["chol_solve"]["launches"] > 0
     for k in ("fit_basis", "fit_gram", "track_spline", "track_synth",
-              "track_srer"):
+              "track_srer", "swipe_loudness", "swipe_pick"):
         assert line["kernels"][k]["launches"] > 0, line["kernels"]
         assert line["kernels"][k]["plain_calls"] == 0, line["kernels"]
     sigs, fs, _ = benchmarks.corpus(run, CORPUS64_N, 2.0)
@@ -1667,6 +1732,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     assert chol.chol_solve.plain_calls == 0
     take_fit("float64_batch64")
     take_tracks("float64_batch64")
+    take_pitch("float64_batch64", calls=1)
     t0 = time.time()
     batch_engine.analyze_batch(sigs, fs, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1688,6 +1754,7 @@ def corpus64_phase(torch, chol, benchmarks, batch_engine):
     bi = take_bi("float32_corpus64", expect=True)
     take_fit("float32_corpus64")
     take_tracks("float32_corpus64")
+    take_pitch("float32_corpus64", calls=CORPUS64_N)
     d32 = np.asarray(seq32["final_srer"]) - np.asarray(seq["final_srer"])
     d_mean = line32["srer_mean_db"] - line["srer_mean_db"]
     log(f"corpus-64 float32 (default solve, sequential): {line32['value']} "
@@ -1832,6 +1899,7 @@ def wide_phase(torch, chol, eaqhm_torch, benchmarks, pref):
             bi = take_bi(path, expect=dt == "float32" and solve32 is None)
             take_fit(path)
             take_tracks(path)
+            take_pitch(path, calls=1)
             log(f"{what}: {seconds:g} s at {fs} Hz, wall {wall:.3f} s, peak "
                 f"device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tiers "
@@ -2355,6 +2423,163 @@ def tracks_phase(torch, tracks):
     return entries
 
 
+def pitch_costs(dp, Si, isz):
+    """(bytes, operations) that one call's swipe_loudness launches and its
+    swipe_pick launch need on this call's data (Si [B, nj, nf] per window).
+    Loudness: per frame the bins its ERB points read (re and im) and per
+    bin |X|^2 times its factor (4); per ERB point the lerp (3; 1 - w once a
+    plan), sqrt(max(0, .)) (2), the square and the norm's sum (2) and the
+    division (1); per frame the norm's sqrt and its test (2); the tables
+    read once, Ln written once.  Pick: the Si frames the steps lerp between,
+    the plan's tables read once, [B, T, 3] written once; per step each
+    window's candidates lerped and weighted (4 each; 1 - tw once a (window,
+    step)), a candidate's windows' terms added (one add fewer than its
+    windows), the argmax (nc - 1 compares); and only at the steps whose
+    argmax is inside the candidates (an edge gives pc[0] and the coarse
+    maximum) the parabola (15), the valid fine-grid points of that
+    candidate (5 operations each and a compare after the first) and the
+    octave step and pow (3 + 20)."""
+    from eaqhm_torch.ops import pitch
+    B = Si[0].shape[0]
+    lb = lf = 0
+    for w in dp.windows:
+        lo = w.erb_lo.cpu().numpy()
+        used, nerb = len(np.union1d(lo, lo + 1)), len(lo)
+        lb += B * w.nf * (2 * used + nerb) * isz + nerb * (8 + isz) \
+            + used * isz
+        lf += B * w.nf * (4 * used + 8 * nerb + 2) + nerb
+    nc, gmax = dp.nftc.shape
+    T = dp.t.shape[0]
+    covered = np.zeros(nc, bool)
+    pb = nc * (10 + gmax) * isz + nc * 4 + T * isz + B * T * 3 * isz
+    pf = 0
+    for s, w in zip(Si, dp.windows):
+        nj = s.shape[1]
+        tlo = w.t_lo.cpu().numpy()
+        frames = len(np.union1d(tlo, tlo + 1))
+        pb += B * nj * frames * isz + nj * isz + T * (8 + isz)
+        pf += T + B * T * 4 * nj
+        covered[w.j0:w.j0 + nj] = True
+    terms = sum(s.shape[1] for s in Si)
+    pf += B * T * (terms - int(covered.sum()) + nc - 1)
+    i = pitch.blend_reference(Si, dp).argmax(dim=-2)
+    inner = (i > 0) & (i < nc - 1)
+    steps = int(inner.sum().item())
+    points = int(dp.nftc_len.long()[i.clamp(1, nc - 2)][inner].sum().item())
+    pf += steps * (15 + 3 + 20) + 6 * points - steps
+    return lb, lf, pb, pf
+
+
+def pitch_phase(torch):
+    """The pitch kernels (ops.pitch: swipe_loudness, swipe_pick) against
+    their plain versions at every plan, batch and type the paths ran (each
+    path asserted both kernels launched and the plain version served
+    nothing), on seeded voices of that shape drawn for the phase
+    (tests/torch_pitch_cases.py; a silent tenth), from the same DFT
+    products: Ln to 1e-12 / 1e-5 (float64 / float32) of its largest entry;
+    swipe_pick on the plain version's Si equal to pick_reference (the same
+    f0 grid point at every step, strength to the same tolerance); the
+    whole kernel route against the plain route, the steps whose f0 moved to
+    another grid point counted (near ties: at most 0.1% of the steps, and
+    in float64 only where the strength agrees).  Per plan each kernel's ms
+    beside the plain version's and its bound: the device's time of 5 calls
+    captured into a CUDA graph and replayed (the eager time, which the
+    host's issue of the launch sets at these shapes, printed beside).
+    Returns the kernels line's two entries."""
+    from eaqhm_torch.models import swipe
+    from eaqhm_torch.ops import pitch, stft
+    from torch_pitch_cases import compare_picks, voices
+    cells = Counter()
+    for rec in PITCH_RUNS.values():
+        for B, T, nc, nwin, dt, key in rec[1]:
+            cells[(key, B, dt)] += 1
+    tot = {k: dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, err=0.0)
+           for k in ("loudness", "pick")}
+    moved = {"float64": [0, 0], "float32": [0, 0]}
+    for i, ((key, B, dt), count) in enumerate(sorted(cells.items())):
+        dtype = getattr(torch, dt)
+        tol, isz = PITCH_TOL[dt], 8 if dt == "float64" else 4
+        plan = swipe.make_plan(*key)
+        x = torch.as_tensor(voices(B, key[3], key[0], key[1], key[2],
+                                   4000 + i), dtype=dtype, device="cuda")
+        dp = swipe.device_plan(plan, dtype, x.device)
+        specs = [stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
+                               w.pad_post) for w in dp.windows]
+        Si_k, Si_p, l_ms, lp_ms, le_ms, l_err = [], [], 0.0, 0.0, 0.0, 0.0
+        for w, spec in zip(dp.windows, specs):
+            ln = pitch.loudness(spec, w)
+            ref = pitch.loudness_reference(spec, w)
+            e = (ln - ref).abs().max().item()
+            assert e <= tol * ref.abs().max().item(), (key, B, dt, w.nfft, e)
+            l_err = max(l_err, e)
+            Si_k.append(torch.matmul(w.kernel, ln))
+            Si_p.append(torch.matmul(w.kernel, ref))
+            l_ms += graph_ms(lambda: pitch.loudness(spec, w), 5)
+            lp_ms += graph_ms(lambda: pitch.loudness_reference(spec, w), 5)
+            le_ms += cuda_ms(lambda: pitch.loudness(spec, w), 5)
+        want = pitch.pick_reference(Si_p, dp).cpu().numpy()
+        same = compare_picks(pitch.pick(Si_p, dp).cpu().numpy(), want, dt)
+        route = compare_picks(pitch.pick(Si_k, dp).cpu().numpy(), want, dt)
+        assert same["t_equal"] and same["f0_moved"] == 0, (key, B, dt, same)
+        assert same["strength_rel_err"] <= tol, (key, B, dt, same)
+        assert route["t_equal"] and route["strength_rel_err"] <= tol, route
+        assert route["f0_moved"] <= 1e-3 * route["steps"], route
+        if dt == "float64":
+            assert route["f0_moved_strength_rel_err"] <= tol, route
+        moved[dt][0] += route["f0_moved"]
+        moved[dt][1] += route["steps"]
+        p_ms = graph_ms(lambda: pitch.pick(Si_p, dp), 5)
+        pp_ms = graph_ms(lambda: pitch.pick_reference(Si_p, dp), 5)
+        pe_ms = cuda_ms(lambda: pitch.pick(Si_p, dp), 5)
+        p_err = same["strength_rel_err"] * float(np.abs(want[..., 2]).max())
+        lb, lf, pb, pf = pitch_costs(dp, Si_p, isz)
+        for k, ms, pms, nb, fl, err in (("loudness", l_ms, lp_ms, lb, lf,
+                                         l_err),
+                                        ("pick", p_ms, pp_ms, pb, pf, p_err)):
+            t = tot[k]
+            t["ms"] += count * ms
+            t["plain_ms"] += count * pms
+            t["t_bytes"] += count * nb / HBM_BYTES_S * 1e3
+            t["t_ops"] += count * fl / PEAK_FLOP_S[dt] * 1e3
+            t["err"] = max(t["err"], err)
+        log(f"pitch {dt} fs={key[0]:g} plim=({key[1]:g}, {key[2]:g}) "
+            f"L={key[3]} B={B} windows {[w.nfft for w in dp.windows]} "
+            f"x{count} calls: swipe_loudness {l_ms:.4f} ms a call (eager "
+            f"{le_ms:.4f}; plain {lp_ms:.4f}, bound "
+            f"{bound_ms(lb, lf, dt)[0]:.4f}, max_abs_err {l_err:.2e}), "
+            f"swipe_pick {p_ms:.4f} ms (eager {pe_ms:.4f}; plain "
+            f"{pp_ms:.4f}, bound {bound_ms(pb, pf, dt)[0]:.4f}); pick on the "
+            f"same Si "
+            f"{same}; kernel route against the plain route {route}")
+        del specs, Si_k, Si_p, x
+        torch.cuda.empty_cache()
+    log(f"pitch: f0 moved to another grid point (near ties), kernel route "
+        f"against the plain route: {moved} (steps moved, steps); DFT bases "
+        f"cached {stft.basis_cache_bytes() / 2**20:.1f} MiB")
+    entries = []
+    for k, name, replaces, also in (
+            ("loudness", "swipe_loudness", "eaqhm_tpu/models/swipe.py:203",
+             ["eaqhm_tpu/ops/stft.py:46"]),
+            ("pick", "swipe_pick", "eaqhm_tpu/models/swipe.py:230",
+             ["eaqhm_tpu/models/swipe.py:203", "eaqhm_tpu/models/swipe.py:258"
+              ])):
+        t = tot[k]
+        by_path = {n: len(rec[0 if k == "loudness" else 1])
+                   for n, rec in PITCH_RUNS.items()}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "eaqhm_torch/kernels/csrc/swipe.cu",
+            "replaces": replaces, "replaces_also": also,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["t_bytes"], t["t_ops"]),
+            "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
+                         else "operations"),
+            "library_ms": None})
+    entries[1]["f0_moved_by_type"] = moved
+    return entries
+
+
 def lfilter_line_entry(torch, filters, shapes):
     """The lfilter kernel at every launch the VAD path made, on seeded
     inputs of each launch's shape (the 30 Hz high-pass): held bit for bit
@@ -2545,6 +2770,9 @@ def main(phases=PHASES):
     t0 = time.time()
     track_entries = tracks_phase(torch, tracks)
     log(f"tracks phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    pitch_entries = pitch_phase(torch)
+    log(f"pitch phase: {time.time() - t0:.1f} s")
     kernels = []
     for cname, dt in (("complex128", torch.complex128),
                       ("complex64", torch.complex64)):
@@ -2566,6 +2794,7 @@ def main(phases=PHASES):
         kernels.append(lfilter_line_entry(torch, filters, lf_shapes))
     kernels.extend(fit_entries)
     kernels.extend(track_entries)
+    kernels.extend(pitch_entries)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

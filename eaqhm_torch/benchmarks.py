@@ -117,24 +117,26 @@ class Run:
 
 
 class Launches:
-    """The Cholesky, block-inverse, fit and tracks kernels' counts summed
-    over the timed calls."""
+    """The Cholesky, block-inverse, fit, tracks and pitch kernels' counts
+    summed over the timed calls."""
 
     def __init__(self):
         self.counts = {name: {"launches": 0, "plain_calls": 0}
                        for name in ("chol_solve", "chol_subst",
                                     "block_inverse", "fit_basis", "fit_gram",
                                     "track_spline", "track_synth",
-                                    "track_srer")}
+                                    "track_srer", "swipe_loudness",
+                                    "swipe_pick")}
 
     def __call__(self, fn, *args, **kw):
         """fn(*args, **kw) with the counts set to 0 before it and added in
         after it."""
-        from eaqhm_torch.ops import block_inverse, chol, fit, tracks
+        from eaqhm_torch.ops import block_inverse, chol, fit, pitch, tracks
         chol.reset_counts()
         block_inverse.reset_counts()
         fit.reset_counts()
         tracks.reset_counts()
+        pitch.reset_counts()
         out = fn(*args, **kw)
         plain_fits = fit.plain_fits()
         plain_tracks = tracks.plain_calls()
@@ -145,6 +147,10 @@ class Launches:
             elif name.startswith("track"):
                 # the plain stage serves the three kernels' work
                 f, plain = getattr(tracks, name), plain_tracks
+            elif name.startswith("swipe"):
+                f = getattr(pitch, name)
+                plain = (pitch.loudness if name == "swipe_loudness"
+                         else pitch.pick).plain_calls
             else:
                 f = (block_inverse.block_inverse_solve
                      if name == "block_inverse" else getattr(chol, name))

@@ -44,23 +44,31 @@ _BATCH_BYTES = {"cuda": 4 << 30, "cpu": 512 << 20}
 def resample_f0_grid(f0s, tq):
     """Linear row resampler == reference `getLinear` (functions.py:644-681).
 
-    f0s: [T, C] rows with col 0 = time; tq: [Q] query times (same dtype and
-    device).  Returns [Q, C] with col 0 = tq.
+    f0s: [..., T, C] rows with col 0 = time; tq: [Q] query times (same dtype
+    and device).  Returns [..., Q, C] with col 0 = tq; each leading index is
+    resampled on its own rows.
     """
-    times = f0s[:, 0].contiguous()
-    T = f0s.shape[0]
-    previ = torch.searchsorted(times, tq, right=True) - 1
+    times = f0s[..., 0].contiguous()                          # [..., T]
+    T = f0s.shape[-2]
+    q = tq.expand(*times.shape[:-1], tq.shape[-1]).contiguous()
+    previ = torch.searchsorted(times, q, right=True) - 1
     below = previ < 0
     pc = previ.clamp(0, T - 1)
     nx = (pc + 1).clamp(0, T - 1)
-    denom = times[nx] - times[pc]
+    t_pc, t_nx = times.gather(-1, pc), times.gather(-1, nx)
+    denom = t_nx - t_pc
     ok = denom != 0
     zero = torch.zeros((), dtype=f0s.dtype, device=f0s.device)
-    g = torch.where(ok, (tq - times[pc]) / torch.where(ok, denom, 1.0), zero)
-    g = torch.where(below | (times[pc] == tq), zero, g)
-    rows = f0s[pc, 1:] * (1 - g[:, None]) + f0s[nx, 1:] * g[:, None]
-    rows = torch.where(below[:, None], f0s[0, 1:], rows)
-    return torch.cat([tq[:, None], rows], dim=1)
+    g = torch.where(ok, (q - t_pc) / torch.where(ok, denom, 1.0), zero)
+    g = torch.where(below | (t_pc == q), zero, g)
+
+    def rows_at(idx):
+        return f0s[..., 1:].gather(
+            -2, idx[..., None].expand(*idx.shape, f0s.shape[-1] - 1))
+
+    rows = rows_at(pc) * (1 - g[..., None]) + rows_at(nx) * g[..., None]
+    rows = torch.where(below[..., None], f0s[..., :1, 1:], rows)
+    return torch.cat([q[..., None], rows], dim=-1)
 
 
 @dataclass
@@ -839,9 +847,8 @@ def analyze(signal, fs: int, config: EaqhmConfig = EaqhmConfig(),
                 "functions.py:676-677)")
     with record_function("eaqhm/pitch"):
         f0s = swipe_mod.swipep(plan, s)
-        t_grid = torch.as_tensor(np.arange(0, Lpad - 1, grid_step) / fs,
-                                 dtype=dtype, device=device)
-        f0_grid = resample_f0_grid(f0s, t_grid)
+        f0_grid = resample_f0_grid(
+            f0s, swipe_mod.device_plan(plan, s.dtype, s.device).t_grid)
     stage_t["pitch_dispatch"] = time.time() - t_s
 
     # ---- VAD (host f64) while the device computes the pitch ----

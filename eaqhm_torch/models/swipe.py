@@ -1,10 +1,15 @@
 """SWIPE' pitch estimation (reference SWIPE.py:14-195).
 
-A static plan of host float64 constants per (fs, plim, length) plus a
-device runtime that is, per power-of-2 window size: one batched STFT with
-matplotlib-PSD semantics, an ERB-grid lerp, column normalization and a
-[nCand x nERB] @ [nERB x T] kernel product, followed by a parabolic
-fine-tune on a 1/768-octave grid.
+A static plan of host float64 constants per (fs, plim, length)
+(``make_plan``), uploaded once per (plan, dtype, device) and kept there
+(``device_plan``), plus a device runtime that is, per power-of-2 window
+size: one product of the windowed frames against the cached DFT bases
+(matplotlib-PSD semantics), the ERB-grid lerp and column normalization
+(``ops.pitch.loudness``) and a [nCand x nERB] @ [nERB x T] kernel product,
+followed by the time lerp, the blend and a parabolic fine-tune on a
+1/768-octave grid (``ops.pitch.pick``).  ``swipep`` takes one utterance [L]
+or a batch [B, L]; on a CUDA tensor it runs the hand kernels, on a CPU
+tensor their plain versions (``ops.pitch``).
 
 Replicated reference quirks: the last selected candidate row per window size
 is zero (SWIPE.py:147 loops to len(pc)-1); argmax at the top edge returns
@@ -14,13 +19,19 @@ sqrt(PSD) with the frequency-dependent doubling baked in.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 import torch
 
+from eaqhm_torch.ops import pitch as pitch_ops
 from eaqhm_torch.ops import stft as stft_ops
+
+# device plans built (each a set of uploads), and the lock they build under
+_device_lock = threading.Lock()
+device_plans_built = 0
 
 
 def hz2erbs(hz):
@@ -79,12 +90,16 @@ class SwipePlan:
     fs: float
     length: int
     pc: np.ndarray           # [nc] pitch candidates (1/96 octave)
+    f0min: float
+    f0max: float
     t: np.ndarray            # [T] output times (1 ms)
     windows: List[_WindowPlan] = field(default_factory=list)
     vinv: np.ndarray = None  # [nc, 3, 3]: parabola coeffs = vinv[i] @ y
     nftc: np.ndarray = None  # [nc, gmax] fine grid abscissae
     nftc_mask: np.ndarray = None
     log2pc_left: np.ndarray = None  # [nc] log2(pc[i-1]) (0 at edges)
+    # (dtype, device) -> ops.pitch.Plan, built by device_plan
+    devices: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @functools.lru_cache(maxsize=16)
@@ -108,7 +123,8 @@ def make_plan(fs: float, f0min: float, f0max: float, length: int) -> SwipePlan:
     d = 1 + log2pc - np.log2(8.0 * fs / ws_list[0])
     fERBs = erbs2hz(np.arange(hz2erbs(pc[0] / 4), hz2erbs(fs / 2), dERBs))
 
-    plan = SwipePlan(fs=fs, length=length, pc=pc, t=t)
+    plan = SwipePlan(fs=fs, length=length, pc=pc, f0min=float(f0min),
+                     f0max=float(f0max), t=t)
     for i in range(len(ws_list)):
         nfft = int(ws_list[i])
         dn = int(round(4.0 * fs / pO[i]))          # == nfft/2 (dc=4, K=2)
@@ -176,65 +192,71 @@ def make_plan(fs: float, f0min: float, f0max: float, length: int) -> SwipePlan:
     return plan
 
 
-def pitch_strength(plan: SwipePlan, x):
-    """Blended pitch-strength matrix S [nc, T] (reference SWIPE.py:52-105)."""
-    dtype, dev = x.dtype, x.device
-
+def _window_tables(plan: SwipePlan, wp: _WindowPlan, dtype, dev):
     def t_(a, dt=dtype):
-        return torch.as_tensor(a, dtype=dt, device=dev)
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
 
-    S = torch.zeros((len(plan.pc), len(plan.t)), dtype=dtype, device=dev)
-    for wp in plan.windows:
-        xz = torch.nn.functional.pad(x, (wp.pad_pre, wp.pad_post))
-        P = stft_ops.specgram_psd(xz, wp.nfft, wp.hop, wp.window, plan.fs)
-        lo = t_(wp.erb_lo, torch.long)
-        w = t_(wp.erb_w)[:, None]
-        Pe = P[lo, :] * (1 - w) + P[lo + 1, :] * w             # [nerb, nt]
-        L = torch.sqrt(torch.clamp(Pe, min=0.0))
-        norms = torch.sqrt(torch.sum(L * L, dim=0, keepdim=True))
-        Ln = torch.where(norms > 0, L / torch.where(norms > 0, norms, 1.0),
-                         torch.zeros_like(L))
-        Si = t_(wp.kernel) @ Ln                                # [nj, nt]
-        tlo = t_(wp.t_lo, torch.long)
-        tw = t_(wp.t_w)[None, :]
-        Sit = Si[:, tlo] * (1 - tw) + Si[:, tlo + 1] * tw      # [nj, T]
-        # candidate rows repeat across window sizes: accumulate
-        S.index_add_(0, t_(wp.j, torch.long), t_(wp.mu)[:, None] * Sit)
-    return S
+    if not np.array_equal(wp.j, np.arange(wp.j[0], wp.j[0] + len(wp.j))):
+        raise ValueError("a window's candidates are not one run")
+    npadded = wp.pad_pre + plan.length + wp.pad_post
+    return pitch_ops.Window(
+        nfft=wp.nfft, hop=wp.hop, pad_pre=wp.pad_pre, pad_post=wp.pad_post,
+        nf=stft_ops.frame_count(npadded, wp.nfft, wp.hop),
+        window=t_(wp.window),
+        scale=t_(stft_ops.psd_scale(wp.nfft, wp.window, plan.fs)),
+        erb_lo=t_(wp.erb_lo, torch.long), erb_w=t_(wp.erb_w),
+        kernel=t_(wp.kernel), j0=int(wp.j[0]), mu=t_(wp.mu),
+        t_lo=t_(wp.t_lo, torch.long), t_w=t_(wp.t_w))
 
 
-def fine_tune(plan: SwipePlan, S):
-    """Parabolic fine-tune on the 1/768-octave grid (SWIPE.py:108-131).
+def device_plan(plan: SwipePlan, dtype, device) -> pitch_ops.Plan:
+    """Every constant the pitch stage reads, in ``dtype`` on ``device``:
+    uploaded at the first call of a (plan, dtype, device), under a lock, and
+    read-only after (``run_streams``' threads share it).  The DFT bases are
+    cached apart (``ops.stft.dft_basis``)."""
+    global device_plans_built
+    key = (dtype, torch.device(device))
+    dp = plan.devices.get(key)
+    if dp is not None:
+        return dp
+    with _device_lock:
+        dp = plan.devices.get(key)
+        if dp is None:
+            dev = key[1]
 
-    Returns (p, s): pitch and strength per 1 ms step.  Top/bottom-edge
-    argmax returns pc[0].
-    """
-    dtype, dev = S.dtype, S.device
-    nc, T = S.shape
-    smax = S.amax(dim=0)
-    i = S.argmax(dim=0)                 # first maximum, as jnp.argmax
-    il = i.clamp(1, nc - 2)
-    cols = torch.arange(T, device=dev)
-    y = torch.stack([S[il - 1, cols], S[il, cols], S[il + 1, cols]], dim=-1)
-    vinv = torch.as_tensor(plan.vinv, dtype=dtype, device=dev)[il]
-    c = torch.einsum("tab,tb->ta", vinv, y)                    # [T, 3]
-    g = torch.as_tensor(plan.nftc, dtype=dtype, device=dev)[il]
-    gm = torch.as_tensor(plan.nftc_mask, device=dev)[il]
-    vals = c[:, 0:1] * g * g + c[:, 1:2] * g + c[:, 2:3]
-    vals = torch.where(gm, vals, -torch.inf)
-    sfine = vals.amax(dim=-1)
-    kbest = vals.argmax(dim=-1)
-    left = torch.as_tensor(plan.log2pc_left, dtype=dtype, device=dev)[il]
-    p = torch.pow(2.0, left + (kbest - 1).to(dtype) / 768.0)
-    edge = (i == 0) | (i == nc - 1)
-    p = torch.where(edge, float(plan.pc[0]), p)
-    s = torch.where(edge, smax, sfine)
-    return p, s
+            def t_(a, dt=dtype):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                       device=dev)
+
+            step = int(round(plan.fs * 5 / 1000))
+            lens = plan.nftc_mask.sum(axis=1).astype(np.int32)
+            if len(plan.pc) < 3 or lens[1:-1].min() < 1:
+                raise ValueError("a pitch plan needs 3 candidates and a fine "
+                                 "grid on every inner one")
+            dp = pitch_ops.Plan(
+                windows=[_window_tables(plan, wp, dtype, dev)
+                         for wp in plan.windows],
+                vinv=t_(plan.vinv), nftc=t_(plan.nftc),
+                nftc_mask=t_(plan.nftc_mask, torch.bool),
+                nftc_len=t_(lens, torch.int32),
+                log2pc_left=t_(plan.log2pc_left), t=t_(plan.t),
+                t_grid=t_(np.arange(0, plan.length - 1, step) / plan.fs),
+                pc0=float(plan.pc[0]),
+                key=(plan.fs, plan.f0min, plan.f0max, plan.length))
+            plan.devices[key] = dp
+            device_plans_built += 1
+    return dp
 
 
 def swipep(plan: SwipePlan, x):
-    """Full SWIPE' estimate: returns [T, 3] (t, f0, strength)."""
-    S = pitch_strength(plan, x)
-    p, s = fine_tune(plan, S)
-    t = torch.as_tensor(plan.t, dtype=x.dtype, device=x.device)
-    return torch.stack([t, p, s], dim=1)
+    """Full SWIPE' estimate of x [L] or [B, L]: [T, 3] or [B, T, 3] (t, f0,
+    strength).  Per window size one DFT product, the loudness kernel and
+    one kernel product, then one pick kernel (CUDA); the plain versions on a
+    CPU tensor."""
+    dp = device_plan(plan, x.dtype, x.device)
+    xb = x if x.dim() == 2 else x[None]
+    Si = [torch.matmul(w.kernel, pitch_ops.loudness(stft_ops.spectrum(
+        xb, w.nfft, w.hop, w.window, w.pad_pre, w.pad_post), w))
+        for w in dp.windows]
+    out = pitch_ops.pick(Si, dp)
+    return out if x.dim() == 2 else out[0]

@@ -477,19 +477,18 @@ def _host_prologue(sig_np, lens, f0_grid, geom: BatchGeometry,
 
 def _prepare(sig_np, lens, geom: BatchGeometry, config: EaqhmConfig, fs: int,
              mesh, device, dtype, rows):
-    """Pitch (one utterance at a time), the host prologue and the tier plan
-    of the utterances ``rows``; returns (shard, h0 [Bp])."""
+    """Pitch (the utterances ``rows`` in one call, one fetch), the host
+    prologue and the tier plan of the utterances ``rows``; returns (shard,
+    h0 [Bp])."""
     Bp, L = sig_np.shape
     f0min, f0max = config.pitch_limits
     plan = swipe_mod.make_plan(float(fs), float(f0min), float(f0max), L)
-    grid_step = int(round(fs * 5 / 1000))
-    t_grid = torch.as_tensor(np.arange(0, L - 1, grid_step) / fs,
-                             dtype=dtype, device=device)
-    f0_grid = np.zeros((Bp, len(t_grid), 3))
-    for b in rows:
-        x = torch.as_tensor(sig_np[b], dtype=dtype, device=device)
-        f0_grid[b] = engine_mod.resample_f0_grid(
-            swipe_mod.swipep(plan, x), t_grid).cpu().numpy()
+    x = torch.as_tensor(sig_np[rows], dtype=dtype, device=device)
+    t_grid = swipe_mod.device_plan(plan, x.dtype, x.device).t_grid
+    f0 = engine_mod.resample_f0_grid(swipe_mod.swipep(plan, x),
+                                     t_grid).cpu().numpy()
+    f0_grid = np.zeros((Bp,) + f0.shape[1:])
+    f0_grid[rows] = f0
     # the tier plan is fixed across adaptations: membership comes from the
     # adaptation-0 per-frame bounds, like the per-utterance engine's tiers
     vo_np, wl_np, f0f_np, Kf_np, h0_np, det_np = _host_prologue(

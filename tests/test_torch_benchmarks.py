@@ -124,7 +124,7 @@ def _check_line(line, n):
     assert k["chol_solve"]["launches"] == k["chol_subst"]["launches"] == 0
     assert k["chol_solve"]["plain_calls"] > 0
     for name in ("fit_basis", "fit_gram", "track_spline", "track_synth",
-                 "track_srer"):
+                 "track_srer", "swipe_loudness", "swipe_pick"):
         assert k[name]["launches"] == 0 and k[name]["plain_calls"] > 0
 
 

@@ -709,3 +709,60 @@ def test_cuda_track_srer_on_many_blocks(dtype):
         assert kernel_nodes(graph) == tracks.srer_plan(
             s.shape[-1]).launches == 2
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cell", ["small", "sa19", "batch"])
+def test_cuda_pitch_kernels_match_plain_version(dtype, cell):
+    """swipe_loudness and swipe_pick against their plain versions on the
+    same DFT products (seeded voices with a silent stretch): Ln to 1e-12 /
+    1e-5 of its largest entry; swipe_pick on the plain version's Si equal
+    to pick_reference (f0 the same grid point, strength to 1e-12 / 1e-5 of
+    the largest), and the whole kernel route against the plain route with
+    the same tolerances, the steps whose f0 moved to another grid point
+    counted and printed: none in float64 beyond near ties (strength
+    agreeing), at most 0.1% of the steps.  One launch of each kernel per
+    window size and per call."""
+    _needs_cuda()
+    from eaqhm_torch.models import swipe
+    from eaqhm_torch.ops import pitch, stft
+    from torch_pitch_cases import compare_picks, voices
+    fs, (lo, hi), B, L = {"small": (16000, (160.0, 300.0), 2, 9000),
+                          "sa19": (16000, (160.0, 300.0), 1, 65536),
+                          "batch": (16000, (70.0, 500.0), 8, 32000)}[cell]
+    name = str(dtype)[6:]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    plan = swipe.make_plan(float(fs), lo, hi, L)
+    x = torch.as_tensor(voices(B, L, fs, lo, hi, 17), dtype=dtype,
+                        device="cuda")
+    dp = swipe.device_plan(plan, dtype, x.device)
+    pitch.reset_counts()
+    Si_k, Si_p = [], []
+    for w in dp.windows:
+        spec = stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
+                             w.pad_post)
+        ln = pitch.loudness(spec, w)
+        ref = pitch.loudness_reference(spec, w)
+        assert (ln - ref).abs().max().item() <= tol * ref.abs().max().item()
+        Si_k.append(torch.matmul(w.kernel, ln))
+        Si_p.append(torch.matmul(w.kernel, ref))
+    same = compare_picks(pitch.pick(Si_p, dp).cpu().numpy(),
+                         pitch.pick_reference(Si_p, dp).cpu().numpy(), name)
+    route = compare_picks(pitch.pick(Si_k, dp).cpu().numpy(),
+                          pitch.pick_reference(Si_p, dp).cpu().numpy(), name)
+    torch.cuda.synchronize()
+    print(f"{cell} {name}: pick on the same Si {same}; kernel route {route}")
+    assert pitch.swipe_loudness.launches == len(dp.windows)
+    assert pitch.swipe_pick.launches == 2 and pitch.plain_calls() == 0
+    assert same["t_equal"] and same["f0_moved"] == 0
+    assert same["strength_rel_err"] <= tol
+    assert route["t_equal"] and route["strength_rel_err"] <= tol
+    assert route["f0_moved"] <= 1e-3 * route["steps"]
+    if dtype == torch.float64:
+        assert route["f0_moved_strength_rel_err"] <= tol
+    pitch.reset_counts()
+    out = swipe.swipep(plan, x)
+    assert out.shape == (B, len(plan.t), 3)
+    assert pitch.swipe_loudness.launches == len(dp.windows)
+    assert pitch.swipe_pick.launches == 1

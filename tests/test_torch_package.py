@@ -59,6 +59,7 @@ def test_import_leaves_jax_out():
             "eaqhm_torch.ops.block_inverse, eaqhm_torch.ops.fit, "
             "eaqhm_torch.ops.filters, eaqhm_torch.ops.medfilt, "
             "eaqhm_torch.ops.tracks, eaqhm_torch.models.tracks, "
+            "eaqhm_torch.ops.pitch, eaqhm_torch.ops.stft, "
             "eaqhm_torch.models.vad, eaqhm_torch.cli, eaqhm_torch.structs, "
             "eaqhm_torch.parallel.corpus, eaqhm_torch.parallel.streams, "
             "eaqhm_torch.parallel.batch_engine, eaqhm_torch.parallel.mesh, "
@@ -84,9 +85,11 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     the card and the helpers of its GPU tests."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     paths += [os.path.join(ROOT, "tests", f) for f in (
-        "torch_track_cases.py", "torch_spline_tiles.py", "test_torch_cuda.py")]
+        "torch_track_cases.py", "torch_spline_tiles.py", "test_torch_cuda.py",
+        "torch_pitch_cases.py")]
     paths += [os.path.join(ROOT, "tools", f) for f in (
         "bench_tracks_phases.py", "bench_fit_phases.py",
+        "bench_pitch_phases.py",
         "bench_chol_phases.py", "bench_block_inverse_phases.py",
         "profile_torch_adapt.py", "torch_chol_route.py",
         "torch_solver_residuals.py")]

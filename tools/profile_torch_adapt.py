@@ -14,9 +14,15 @@ float32:block_inverse, float64:fused).  The kernels are built first.
 Prints, per configuration: the first call's wall seconds, warm wall seconds (unprofiled, each call), the profiled call's wall, device busy
 seconds and idle share against both walls, per-adaptation seconds, device
 time per layer span (eaqhm/pitch, eaqhm/fit, eaqhm/solve, eaqhm/tracks;
-graph replays run no spans), the tracks span per adaptation (its device
-time and the launches made inside it: kernels, copies and memsets the
-host issued between the span's start and end) and the top kernels.  With
+graph replays run no spans: the span's range on the device timeline, from
+its first kernel to its last, host gaps included), the tracks span per
+adaptation (its device time and the launches made inside it: kernels,
+copies and memsets the host issued between the span's start and end),
+the pitch span's work (``pitch_span``: the launches the host issued inside
+it, by kind (kernels, copies, memsets), its host-to-device copies, and its
+device busy time, the sum of the device events of those
+launches, kept apart from the span's timeline range), the engine's
+``pitch_dispatch`` and ``pitch`` timings, and the top kernels.  With
 --peaks, one more unprofiled call per configuration measures the peak
 device memory of each stage: the peak is reset just before every call of
 the fit (iqhm_gram_tables / eaqhm_gram_tables), the solve (solve_gram)
@@ -72,6 +78,35 @@ def config_of(spec, signal):
         else:
             kw["solve_method"] = p
     return eaqhm_torch.EaqhmConfig(**kw)
+
+
+def span_work(prof, name):
+    """What the host put on the device inside the span ``name``, summed over
+    its instances: the runtime calls issued between its start and end by
+    kind, the device events they made (matched by correlation id), the
+    host-to-device copies among them, and the device busy
+    seconds (the sum of those events' durations, no gap counted)."""
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+    calls = [e for e in events if e.name in LAUNCHES
+             and e.device_type == DeviceType.CPU
+             and any(a <= e.time_range.start <= b for a, b in spans)]
+    ids = {e.id for e in calls}
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.id in ids and e.name not in SPANS]
+    h2d = [e for e in dev if "HtoD" in e.name]
+    return {
+        "spans": len(spans),
+        "launches": len(calls),
+        "kernel_launches": sum("Kernel" in e.name for e in calls),
+        "copies": sum("Memcpy" in e.name for e in calls),
+        "memsets": sum("Memset" in e.name for e in calls),
+        "device_events": len(dev),
+        "h2d_copies": len(h2d),
+        "device_busy_s": sum(e.time_range.end - e.time_range.start
+                             for e in dev) / 1e6,
+    }
 
 
 def span_launches(prof, name):
@@ -189,6 +224,9 @@ def profile_config(sig, fs, spec, args):
         "tracks_device_s_per_span": (spans.get("eaqhm/tracks", 0.0)
                                      / max(n_tracks, 1)),
         "tracks_launches_per_span": tracks_launches,
+        "pitch_span": span_work(prof, "eaqhm/pitch"),
+        "pitch_timings_s": {k: res.timings.get(k) for k in
+                            ("pitch_dispatch", "vad", "pitch")},
         "top_kernels": kernels, "tiers": res.tiers,
     }
     if args.peaks:
@@ -197,7 +235,8 @@ def profile_config(sig, fs, spec, args):
     print(json.dumps({k: out[k] for k in (
         "config", "signal", "card", "warm_wall_s", "device_idle_share",
         "span_device_s", "tracks_spans", "tracks_device_s_per_span",
-        "tracks_launches_per_span") + (("peaks",) if args.peaks else ())}),
+        "tracks_launches_per_span", "pitch_span", "pitch_timings_s")
+        + (("peaks",) if args.peaks else ())}),
         flush=True)
     return out
 
