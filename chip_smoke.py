@@ -135,19 +135,23 @@
    spilled bytes (asserted 0) and blocks a SM; kernel ms from a CUDA
    graph of launches replayed (the device's time, no host gap).
 15. Pitch phase: every path above asserts that both pitch kernels
-   (swipe_loudness, swipe_pick: ops.pitch) launched, swipe_loudness once
-   per window size of each call, the batch engine's paths one call a
-   batch, and that the plain version served nothing; a plan's later calls
-   (the warm calls) build no device plan and no DFT basis, so the stage
-   uploads nothing.  Then both kernels against their plain versions at
-   every (plan, batch, type) the paths ran, on seeded voices of that shape
-   (tests/torch_pitch_cases.py), from the same DFT products: Ln to 1e-12 /
-   1e-5 of its largest entry, swipe_pick on the plain version's Si the same
-   f0 grid point at every step and strength to the same tolerance, the
-   kernel route against the plain route with the f0 steps that moved to
-   another grid point counted (near ties; at most 0.1% of the steps, in
-   float64 only where the strength agrees); per plan each kernel's ms beside
-   the plain version's and its bound (CUDA graphs replayed).
+   (swipe_loudness, swipe_pick: ops.pitch) launched, swipe_loudness's two
+   launches (every window size's DFT, then the ERB epilogue) and one
+   swipe_pick a call, swipe_pick writing the engines' f0 grid,
+   the batch engine's paths one call a batch, that no DFT basis was built
+   or kept on the card (the loudness reads the compact tables of the
+   needed bins) and that the plain version served nothing; a plan's later
+   calls (the warm calls) build no device plan, basis or table, so the
+   stage uploads nothing.  Then both kernels against their plain versions
+   at every (plan, batch, type) the paths ran, on seeded voices of that
+   shape (tests/torch_pitch_cases.py): Ln from the signal to 1e-12 / 1e-5
+   of its largest entry against the plain version on the full DFT bases,
+   swipe_pick on the plain version's Si bit for bit (every step and the
+   f0 grid), the kernel route against the plain route with the f0 steps
+   that moved to another grid point counted (near ties; at most 0.1% of
+   the steps, in float64 only where the strength agrees); per plan each
+   kernel's ms beside the plain version's, its bound and the torch-op part
+   of the parent's route (CUDA graphs replayed).
 16. One JSON line of the kernels (each kernel at every launch the paths
    made: the Cholesky factor + solve and the substitution with a kept
    factor as two entries, the substitution's device launches a call
@@ -190,6 +194,9 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"complex64": 67e12, "complex128": 67e12,
                # outside the tensor cores (the IIR recursion, the tracks)
                "float64": 34e12, "float32": 67e12}
+# the pitch loudness's DFT: float64 on the FP64 tensor cores, float32 on
+# FFMA (no TF32)
+DFT_FLOP_S = {"float64": 67e12, "float32": 67e12}
 KERNEL_TOL = {"complex64": 2e-4, "complex128": 1e-10}
 RIDGED_TOL = 1e-2
 SRER_TOL_DB = 1e-6
@@ -255,10 +262,10 @@ FIT_BEFORE_S = {"float32": "1.3488", "float64": "1.8904"}
 # replays)
 TRACK_RUNS = {}
 # pitch kernels' launches by path: name -> (swipe_loudness shapes,
-# swipe_pick shapes, (device plans, bases) built); and the builds' counts
-# when the counts were last set to 0
+# swipe_pick shapes, (device plans, bases, compact tables) built); and the
+# builds' counts when the counts were last set to 0
 PITCH_RUNS = {}
-PITCH_BUILDS = [0, 0]
+PITCH_BUILDS = [0, 0, 0]
 PITCH_TOL = {"float64": 1e-12, "float32": 1e-5}
 # the tracks kernels against their plain version (of the largest entry of
 # each output): float64 to rounding; float32 composes M's affine maps, the
@@ -943,7 +950,8 @@ def reset_counts(chol):
     """Every kernel count of the fit, the solve, the tracks stage and the
     pitch stage to 0: the fit kernels', the Cholesky kernel's, the block
     inverse's, the tracks kernels' and the pitch kernels'; and the pitch
-    stage's builds (device plans, DFT bases) so far, for take_pitch."""
+    stage's builds (device plans, DFT bases, compact DFT tables) so far,
+    for take_pitch."""
     from eaqhm_torch.models import swipe
     from eaqhm_torch.ops import block_inverse, fit, pitch, stft, tracks
     chol.reset_counts()
@@ -951,7 +959,8 @@ def reset_counts(chol):
     fit.reset_counts()
     tracks.reset_counts()
     pitch.reset_counts()
-    PITCH_BUILDS[:] = [swipe.device_plans_built, stft.bases_built]
+    PITCH_BUILDS[:] = [swipe.device_plans_built, stft.bases_built,
+                       stft.columns_built]
 
 
 def take_fit(name, keep=True):
@@ -992,27 +1001,36 @@ def take_tracks(name, keep=True):
 
 def take_pitch(name, keep=True, warm=False, calls=None):
     """The pitch kernels' launches since the counts were set to 0: both
-    launched, swipe_loudness once per window size of each swipe_pick
-    call, none served by the plain version; with calls, that many pitch
+    launched, swipe_loudness twice (its two device launches) for each
+    swipe_pick call, of the same plan, every swipe_pick launch writing the
+    engines' f0 grid, none served
+    by the plain version, no DFT basis built and none kept on the card
+    (the kernels read the compact tables); with calls, that many pitch
     calls (the batch engine: one per batch); with warm (a plan's later
-    call), no device plan and no DFT basis built, so the stage uploaded
-    nothing (the signal is uploaded before it).  Kept in PITCH_RUNS under
-    name (keep) for the pitch phase and the kernels line."""
+    call), no device plan and no compact table built either, so the stage
+    uploaded nothing (the signal is uploaded before it).  Kept in
+    PITCH_RUNS under name (keep) for the pitch phase and the kernels
+    line."""
     from eaqhm_torch.models import swipe
     from eaqhm_torch.ops import pitch, stft
     lo, pk = pitch.swipe_loudness, pitch.swipe_pick
     assert pitch.plain_calls() == 0, (name, pitch.plain_calls())
     assert lo.launches > 0 and pk.launches > 0, (name, lo.launches,
                                                  pk.launches)
-    assert lo.launches == sum(sh[3] for sh in pk.shapes), (
+    assert lo.launches == 2 * len(lo.shapes) == 2 * pk.launches, (
         name, lo.launches, pk.shapes)
     assert len(pk.shapes) == pk.launches
+    assert [sh[3] for sh in lo.shapes] == [sh[5] for sh in pk.shapes], name
+    assert all(sh[6] for sh in pk.shapes), (name, "f0 grid", pk.shapes)
     if calls is not None:
         assert pk.launches == calls, (name, pk.launches, calls)
     built = (swipe.device_plans_built - PITCH_BUILDS[0],
-             stft.bases_built - PITCH_BUILDS[1])
+             stft.bases_built - PITCH_BUILDS[1],
+             stft.columns_built - PITCH_BUILDS[2])
+    assert built[1] == 0 and stft.basis_cache_bytes() == 0, (
+        name, built, stft.basis_cache_bytes())
     if warm:
-        assert built == (0, 0), (name, built)
+        assert built == (0, 0, 0), (name, built)
     rec = (list(lo.shapes), list(pk.shapes), built)
     if keep:
         PITCH_RUNS[name] = rec
@@ -2423,78 +2441,95 @@ def tracks_phase(torch, tracks):
     return entries
 
 
-def pitch_costs(dp, Si, isz):
-    """(bytes, operations) that one call's swipe_loudness launches and its
-    swipe_pick launch need on this call's data (Si [B, nj, nf] per window).
-    Loudness: per frame the bins its ERB points read (re and im) and per
-    bin |X|^2 times its factor (4); per ERB point the lerp (3; 1 - w once a
-    plan), sqrt(max(0, .)) (2), the square and the norm's sum (2) and the
-    division (1); per frame the norm's sqrt and its test (2); the tables
-    read once, Ln written once.  Pick: the Si frames the steps lerp between,
-    the plan's tables read once, [B, T, 3] written once; per step each
+def pitch_costs(dp, x, Si, isz):
+    """What one call's swipe_loudness launches and its grid swipe_pick
+    launch need on this call's data (x [B, L]; Si [B, nf, nj] per window):
+    (loudness bytes, DFT flops, other loudness flops, pick bytes, pick
+    flops).  Loudness: the signal read once, each window's compact table,
+    window and tables read once, Ln written once; the DFT's
+    4 frames nfft bins flops (re and im, a multiply-add each); x * w once a
+    sample of a frame; per frame and needed bin |X|^2 times its factor (4);
+    per ERB point the lerp (3), sqrt(max(0, .)) (2), the square and the
+    norm's sum (2) and the division (1); per frame the norm's sqrt and its
+    test (2).  Pick, at the grid's steps only (the union of its points' two
+    steps): the Si rows those steps lerp between, their tables, the plan's
+    and the grid's tables read once, [B, Q, 3] written once; per step each
     window's candidates lerped and weighted (4 each; 1 - tw once a (window,
-    step)), a candidate's windows' terms added (one add fewer than its
-    windows), the argmax (nc - 1 compares); and only at the steps whose
-    argmax is inside the candidates (an edge gives pc[0] and the coarse
-    maximum) the parabola (15), the valid fine-grid points of that
-    candidate (5 operations each and a compare after the first) and the
-    octave step and pow (3 + 20)."""
+    step)), a candidate's windows' terms added, the argmax (nc - 1
+    compares); at the steps whose argmax is inside the candidates the
+    parabola (15), that candidate's valid fine-grid points (6 each, one
+    compare fewer) and the octave step and pow (3 + 20); per grid point the
+    resample of two columns (7)."""
+    import torch
     from eaqhm_torch.ops import pitch
-    B = Si[0].shape[0]
-    lb = lf = 0
+    B, L = x.shape
+    lb, ldft, lother = B * L * isz, 0, 0
     for w in dp.windows:
-        lo = w.erb_lo.cpu().numpy()
-        used, nerb = len(np.union1d(lo, lo + 1)), len(lo)
-        lb += B * w.nf * (2 * used + nerb) * isz + nerb * (8 + isz) \
-            + used * isz
-        lf += B * w.nf * (4 * used + 8 * nerb + 2) + nerb
+        nu, nerb = w.scale_c.shape[0], w.erb_c.shape[0]
+        M = B * w.nf
+        lb += (w.nfft + 2 * w.nfft * nu + nu + M * nerb) * isz \
+            + nerb * (4 + isz)
+        ldft += 4 * M * w.nfft * nu
+        lother += M * w.nfft + M * (4 * nu + 8 * nerb + 2)
     nc, gmax = dp.nftc.shape
-    T = dp.t.shape[0]
+    Q = dp.t_grid.shape[0]
+    steps = np.union1d(dp.grid.pc.cpu().numpy(), dp.grid.nx.cpu().numpy())
+    n = len(steps)
+    pb = nc * (10 + gmax) * isz + nc * 4 + Q * (17 + 2 * isz) \
+        + B * Q * 3 * isz
+    pf = 7 * B * Q
     covered = np.zeros(nc, bool)
-    pb = nc * (10 + gmax) * isz + nc * 4 + T * isz + B * T * 3 * isz
-    pf = 0
     for s, w in zip(Si, dp.windows):
-        nj = s.shape[1]
-        tlo = w.t_lo.cpu().numpy()
+        nj = s.shape[2]
+        tlo = w.t_lo.cpu().numpy()[steps]
         frames = len(np.union1d(tlo, tlo + 1))
-        pb += B * nj * frames * isz + nj * isz + T * (8 + isz)
-        pf += T + B * T * 4 * nj
+        pb += B * nj * frames * isz + nj * isz + n * (8 + isz)
+        pf += B * n + B * n * 4 * nj
         covered[w.j0:w.j0 + nj] = True
-    terms = sum(s.shape[1] for s in Si)
-    pf += B * T * (terms - int(covered.sum()) + nc - 1)
-    i = pitch.blend_reference(Si, dp).argmax(dim=-2)
+    terms = sum(s.shape[2] for s in Si)
+    pf += B * n * (terms - int(covered.sum()) + nc - 1)
+    S = pitch.blend_reference(Si, dp)[:, torch.as_tensor(steps).to(
+        Si[0].device), :]
+    i = S.argmax(dim=-1)
     inner = (i > 0) & (i < nc - 1)
-    steps = int(inner.sum().item())
+    nin = int(inner.sum().item())
     points = int(dp.nftc_len.long()[i.clamp(1, nc - 2)][inner].sum().item())
-    pf += steps * (15 + 3 + 20) + 6 * points - steps
-    return lb, lf, pb, pf
+    pf += nin * 38 + 6 * points - nin
+    return lb, ldft, lother, pb, pf
 
 
 def pitch_phase(torch):
     """The pitch kernels (ops.pitch: swipe_loudness, swipe_pick) against
     their plain versions at every plan, batch and type the paths ran (each
-    path asserted both kernels launched and the plain version served
-    nothing), on seeded voices of that shape drawn for the phase
-    (tests/torch_pitch_cases.py; a silent tenth), from the same DFT
-    products: Ln to 1e-12 / 1e-5 (float64 / float32) of its largest entry;
-    swipe_pick on the plain version's Si equal to pick_reference (the same
-    f0 grid point at every step, strength to the same tolerance); the
-    whole kernel route against the plain route, the steps whose f0 moved to
-    another grid point counted (near ties: at most 0.1% of the steps, and
-    in float64 only where the strength agrees).  Per plan each kernel's ms
-    beside the plain version's and its bound: the device's time of 5 calls
-    captured into a CUDA graph and replayed (the eager time, which the
-    host's issue of the launch sets at these shapes, printed beside).
-    Returns the kernels line's two entries."""
-    from eaqhm_torch.models import swipe
+    path asserted both kernels launched, the grid written by swipe_pick,
+    no DFT basis built or kept and the plain version serving nothing), on
+    seeded voices of that shape drawn for the phase
+    (tests/torch_pitch_cases.py; a silent tenth): Ln from the signal to
+    1e-12 / 1e-5 (float64 / float32) of its largest entry against
+    loudness_reference on the full DFT bases; swipe_pick on the plain
+    version's Si equal bit for bit to pick_reference (every step) and to
+    grid_reference (the f0 grid); the whole kernel route against the plain
+    route, the steps that moved counted (f0 to another grid point, or the
+    coarse pick to another candidate: at most 0.1% of the steps, and in
+    float64 only where the strength agrees; every coarse move a near tie
+    proven on the blended strengths, which at both argmaxes agree to the
+    tolerance in each route; every step's strength but those ties' to the
+    tolerance above).  Per plan each kernel's ms beside the plain version's, its
+    bound and the torch-op part of the parent's route (the loudness: pad,
+    unfold, window and the DFT product on the full bases, ops.stft.spectrum;
+    the pick: every step, then resample_f0_grid's torch ops): the device's
+    time of 5 calls captured into a CUDA graph and replayed (the eager
+    time, which the host's issue of the launch sets at these shapes,
+    printed beside).  Returns the kernels line's two entries."""
+    from eaqhm_torch.models import engine, swipe
     from eaqhm_torch.ops import pitch, stft
-    from torch_pitch_cases import compare_picks, voices
+    from torch_pitch_cases import coarse_moves, compare_picks, voices
     cells = Counter()
     for rec in PITCH_RUNS.values():
-        for B, T, nc, nwin, dt, key in rec[1]:
+        for B, items, nc, nwin, dt, key, grid in rec[1]:
             cells[(key, B, dt)] += 1
-    tot = {k: dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, err=0.0)
-           for k in ("loudness", "pick")}
+    tot = {k: dict(ms=0.0, plain_ms=0.0, parent_ms=0.0, t_bytes=0.0,
+                   t_ops=0.0, err=0.0) for k in ("loudness", "pick")}
     moved = {"float64": [0, 0], "float32": [0, 0]}
     for i, ((key, B, dt), count) in enumerate(sorted(cells.items())):
         dtype = getattr(torch, dt)
@@ -2503,75 +2538,104 @@ def pitch_phase(torch):
         x = torch.as_tensor(voices(B, key[3], key[0], key[1], key[2],
                                    4000 + i), dtype=dtype, device="cuda")
         dp = swipe.device_plan(plan, dtype, x.device)
-        specs = [stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
-                               w.pad_post) for w in dp.windows]
-        Si_k, Si_p, l_ms, lp_ms, le_ms, l_err = [], [], 0.0, 0.0, 0.0, 0.0
-        for w, spec in zip(dp.windows, specs):
-            ln = pitch.loudness(spec, w)
-            ref = pitch.loudness_reference(spec, w)
+        Si_k, Si_p, l_err = [], [], 0.0
+
+        def kern():
+            return pitch.loudness(x, dp)
+
+        def dft_route():
+            return [stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
+                                  w.pad_post) for w in dp.windows]
+
+        def plain():
+            return [pitch.loudness_reference(s, w)
+                    for s, w in zip(dft_route(), dp.windows)]
+
+        for w, ln, ref in zip(dp.windows, kern(), plain()):
             e = (ln - ref).abs().max().item()
             assert e <= tol * ref.abs().max().item(), (key, B, dt, w.nfft, e)
             l_err = max(l_err, e)
-            Si_k.append(torch.matmul(w.kernel, ln))
-            Si_p.append(torch.matmul(w.kernel, ref))
-            l_ms += graph_ms(lambda: pitch.loudness(spec, w), 5)
-            lp_ms += graph_ms(lambda: pitch.loudness_reference(spec, w), 5)
-            le_ms += cuda_ms(lambda: pitch.loudness(spec, w), 5)
-        want = pitch.pick_reference(Si_p, dp).cpu().numpy()
-        same = compare_picks(pitch.pick(Si_p, dp).cpu().numpy(), want, dt)
-        route = compare_picks(pitch.pick(Si_k, dp).cpu().numpy(), want, dt)
-        assert same["t_equal"] and same["f0_moved"] == 0, (key, B, dt, same)
-        assert same["strength_rel_err"] <= tol, (key, B, dt, same)
+            Si_k.append(torch.matmul(ln, w.kernel.t()))
+            Si_p.append(torch.matmul(ref, w.kernel.t()))
+        l_ms = graph_ms(kern, 5)
+        lp_ms = graph_ms(plain, 5)
+        ld_ms = graph_ms(dft_route, 5)
+        le_ms = cuda_ms(kern, 5)
+        rows_want = pitch.pick_reference(Si_p, dp)
+        grid_want = pitch.grid_reference(Si_p, dp)
+        rows_eq = torch.equal(pitch.pick(Si_p, dp), rows_want)
+        grid_eq = torch.equal(pitch.pick(Si_p, dp, grid=True), grid_want)
+        assert rows_eq and grid_eq, (key, B, dt, rows_eq, grid_eq)
+        route = compare_picks(pitch.pick(Si_k, dp).cpu().numpy(),
+                              rows_want.cpu().numpy(), dt, coarse_moves(
+                                  pitch.blend_reference(Si_k, dp),
+                                  pitch.blend_reference(Si_p, dp), tol))
         assert route["t_equal"] and route["strength_rel_err"] <= tol, route
+        assert route["coarse_ties"] == route["coarse_moved"], route
         assert route["f0_moved"] <= 1e-3 * route["steps"], route
         if dt == "float64":
             assert route["f0_moved_strength_rel_err"] <= tol, route
         moved[dt][0] += route["f0_moved"]
         moved[dt][1] += route["steps"]
-        p_ms = graph_ms(lambda: pitch.pick(Si_p, dp), 5)
-        pp_ms = graph_ms(lambda: pitch.pick_reference(Si_p, dp), 5)
-        pe_ms = cuda_ms(lambda: pitch.pick(Si_p, dp), 5)
-        p_err = same["strength_rel_err"] * float(np.abs(want[..., 2]).max())
-        lb, lf, pb, pf = pitch_costs(dp, Si_p, isz)
-        for k, ms, pms, nb, fl, err in (("loudness", l_ms, lp_ms, lb, lf,
-                                         l_err),
-                                        ("pick", p_ms, pp_ms, pb, pf, p_err)):
+        p_ms = graph_ms(lambda: pitch.pick(Si_p, dp, grid=True), 5)
+        pp_ms = graph_ms(lambda: pitch.grid_reference(Si_p, dp), 5)
+        pr_ms = graph_ms(lambda: engine.resample_f0_grid(
+            pitch.pick(Si_p, dp), dp.t_grid), 5)
+        pe_ms = cuda_ms(lambda: pitch.pick(Si_p, dp, grid=True), 5)
+        p_err = float((pitch.pick(Si_p, dp, grid=True)
+                       - grid_want).abs().max().item())
+        lb, ldft, lother, pb, pf = pitch_costs(dp, x, Si_p, isz)
+        l_ops = (ldft / DFT_FLOP_S[dt] + lother / PEAK_FLOP_S[dt]) * 1e3
+        p_ops = pf / PEAK_FLOP_S[dt] * 1e3
+        for k, ms, pms, par, nb, t_ops, err in (
+                ("loudness", l_ms, lp_ms, ld_ms, lb, l_ops, l_err),
+                ("pick", p_ms, pp_ms, pr_ms, pb, p_ops, p_err)):
             t = tot[k]
             t["ms"] += count * ms
             t["plain_ms"] += count * pms
+            t["parent_ms"] += count * par
             t["t_bytes"] += count * nb / HBM_BYTES_S * 1e3
-            t["t_ops"] += count * fl / PEAK_FLOP_S[dt] * 1e3
+            t["t_ops"] += count * t_ops
             t["err"] = max(t["err"], err)
         log(f"pitch {dt} fs={key[0]:g} plim=({key[1]:g}, {key[2]:g}) "
-            f"L={key[3]} B={B} windows {[w.nfft for w in dp.windows]} "
+            f"L={key[3]} B={B} windows {[w.nfft for w in dp.windows]} ks "
+            f"{[pitch.loudness_splits(B * w.nf, w.scale_c.shape[0], w.nfft,
+                                      pitch.sm_count(x.device))
+                for w in dp.windows]} "
             f"x{count} calls: swipe_loudness {l_ms:.4f} ms a call (eager "
-            f"{le_ms:.4f}; plain {lp_ms:.4f}, bound "
-            f"{bound_ms(lb, lf, dt)[0]:.4f}, max_abs_err {l_err:.2e}), "
-            f"swipe_pick {p_ms:.4f} ms (eager {pe_ms:.4f}; plain "
-            f"{pp_ms:.4f}, bound {bound_ms(pb, pf, dt)[0]:.4f}); pick on the "
-            f"same Si "
-            f"{same}; kernel route against the plain route {route}")
-        del specs, Si_k, Si_p, x
+            f"{le_ms:.4f}; plain {lp_ms:.4f}; the parent's DFT route "
+            f"{ld_ms:.4f}; bound {max(lb / HBM_BYTES_S * 1e3, l_ops):.4f}, "
+            f"max_abs_err {l_err:.2e}), swipe_pick (grid) {p_ms:.4f} ms "
+            f"(eager {pe_ms:.4f}; plain {pp_ms:.4f}; every step + torch "
+            f"resample {pr_ms:.4f}; bound "
+            f"{max(pb / HBM_BYTES_S * 1e3, p_ops):.4f}); pick on the same "
+            f"Si bit for bit: rows {rows_eq}, grid {grid_eq}; kernel route "
+            f"against the plain route {route}")
+        del Si_k, Si_p, x
         torch.cuda.empty_cache()
     log(f"pitch: f0 moved to another grid point (near ties), kernel route "
         f"against the plain route: {moved} (steps moved, steps); DFT bases "
-        f"cached {stft.basis_cache_bytes() / 2**20:.1f} MiB")
+        f"cached for the plain versions {stft.basis_cache_bytes() / 2**20:.1f}"
+        f" MiB; compact tables {stft.columns_cache_bytes() / 2**20:.1f} MiB")
     entries = []
-    for k, name, replaces, also in (
+    for k, name, replaces, also, parent in (
             ("loudness", "swipe_loudness", "eaqhm_tpu/models/swipe.py:203",
-             ["eaqhm_tpu/ops/stft.py:46"]),
+             ["eaqhm_tpu/ops/stft.py:46"], "dft_route_ms"),
             ("pick", "swipe_pick", "eaqhm_tpu/models/swipe.py:230",
-             ["eaqhm_tpu/models/swipe.py:203", "eaqhm_tpu/models/swipe.py:258"
-              ])):
+             ["eaqhm_tpu/models/swipe.py:203", "eaqhm_tpu/models/swipe.py:258",
+              "eaqhm_tpu/models/engine.py:39"], "steps_then_resample_ms")):
         t = tot[k]
-        by_path = {n: len(rec[0 if k == "loudness" else 1])
+        per_call = 2 if k == "loudness" else 1
+        by_path = {n: per_call * len(rec[0 if k == "loudness" else 1])
                    for n, rec in PITCH_RUNS.items()}
         entries.append({
             "name": name, "route": "cuda",
             "source": "eaqhm_torch/kernels/csrc/swipe.cu",
             "replaces": replaces, "replaces_also": also,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "kernel_launches_per_call": per_call,
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            parent: t["parent_ms"],
             "bound_ms": max(t["t_bytes"], t["t_ops"]),
             "bound_by": ("bytes" if t["t_bytes"] >= t["t_ops"]
                          else "operations"),

@@ -82,12 +82,13 @@ KERNELS = {
         "track_phase_clocks": [_P],
     }),
     "swipe": ("swipe.cu", {
-        "swipe_loudness_f32": [_P] * 5 + [_I] * 4 + [_P],
-        "swipe_loudness_f64": [_P] * 5 + [_I] * 4 + [_P],
-        "swipe_pick_f32": [_P] * 7 + [_I] + [_P] * 5 + [_D, _P] + [_I] * 4
-                          + [_P],
-        "swipe_pick_f64": [_P] * 7 + [_I] + [_P] * 5 + [_D, _P] + [_I] * 4
-                          + [_P],
+        "swipe_prepare": [],
+        "swipe_loudness_f32": [_P, _I, _I, _I] + [_P] * 14 + [_P],
+        "swipe_loudness_f64": [_P, _I, _I, _I] + [_P] * 14 + [_P],
+        "swipe_pick_f32": [_P] * 7 + [_I] + [_P] * 5 + [_D] + [_P] * 4
+                          + [_I, _P] + [_I] * 4 + [_P],
+        "swipe_pick_f64": [_P] * 7 + [_I] + [_P] * 5 + [_D] + [_P] * 4
+                          + [_I, _P] + [_I] * 4 + [_P],
     }),
     "lfilter": ("lfilter.cu", {
         "lfilter_f64": [_P, _P, _P, _P, _P, _L, _L, _I, _P],

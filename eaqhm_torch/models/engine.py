@@ -28,6 +28,7 @@ from eaqhm_torch.device import resolve_device
 from eaqhm_torch.models import swipe as swipe_mod
 from eaqhm_torch.models import vad as vad_mod
 from eaqhm_torch.ops import block_inverse, chol, filters, fit, solver
+from eaqhm_torch.ops.pitch import resample_f0_grid  # noqa: F401 (public)
 from eaqhm_torch.ops import tracks as tracks_ops
 from eaqhm_torch.utils import io as io_mod
 from eaqhm_torch.utils.progress import progress_bar
@@ -39,36 +40,6 @@ K_LATTICE = (24, 32, 40, 48, 64, 96, 128, 192, 256)
 # frames are grouped into batches of config.chunk multiples under it, or of
 # fewer frames (at least one) where one chunk is over it.
 _BATCH_BYTES = {"cuda": 4 << 30, "cpu": 512 << 20}
-
-
-def resample_f0_grid(f0s, tq):
-    """Linear row resampler == reference `getLinear` (functions.py:644-681).
-
-    f0s: [..., T, C] rows with col 0 = time; tq: [Q] query times (same dtype
-    and device).  Returns [..., Q, C] with col 0 = tq; each leading index is
-    resampled on its own rows.
-    """
-    times = f0s[..., 0].contiguous()                          # [..., T]
-    T = f0s.shape[-2]
-    q = tq.expand(*times.shape[:-1], tq.shape[-1]).contiguous()
-    previ = torch.searchsorted(times, q, right=True) - 1
-    below = previ < 0
-    pc = previ.clamp(0, T - 1)
-    nx = (pc + 1).clamp(0, T - 1)
-    t_pc, t_nx = times.gather(-1, pc), times.gather(-1, nx)
-    denom = t_nx - t_pc
-    ok = denom != 0
-    zero = torch.zeros((), dtype=f0s.dtype, device=f0s.device)
-    g = torch.where(ok, (q - t_pc) / torch.where(ok, denom, 1.0), zero)
-    g = torch.where(below | (t_pc == q), zero, g)
-
-    def rows_at(idx):
-        return f0s[..., 1:].gather(
-            -2, idx[..., None].expand(*idx.shape, f0s.shape[-1] - 1))
-
-    rows = rows_at(pc) * (1 - g[..., None]) + rows_at(nx) * g[..., None]
-    rows = torch.where(below[..., None], f0s[..., :1, 1:], rows)
-    return torch.cat([q[..., None], rows], dim=-1)
 
 
 @dataclass
@@ -846,9 +817,7 @@ def analyze(signal, fs: int, config: EaqhmConfig = EaqhmConfig(),
                 "exceeds the last pitch row (reference getLinear raise, "
                 "functions.py:676-677)")
     with record_function("eaqhm/pitch"):
-        f0s = swipe_mod.swipep(plan, s)
-        f0_grid = resample_f0_grid(
-            f0s, swipe_mod.device_plan(plan, s.dtype, s.device).t_grid)
+        f0_grid = swipe_mod.f0_grid(plan, s)
     stage_t["pitch_dispatch"] = time.time() - t_s
 
     # ---- VAD (host f64) while the device computes the pitch ----

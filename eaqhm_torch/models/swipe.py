@@ -2,14 +2,17 @@
 
 A static plan of host float64 constants per (fs, plim, length)
 (``make_plan``), uploaded once per (plan, dtype, device) and kept there
-(``device_plan``), plus a device runtime that is, per power-of-2 window
-size: one product of the windowed frames against the cached DFT bases
-(matplotlib-PSD semantics), the ERB-grid lerp and column normalization
-(``ops.pitch.loudness``) and a [nCand x nERB] @ [nERB x T] kernel product,
-followed by the time lerp, the blend and a parabolic fine-tune on a
+(``device_plan``), plus a device runtime: the normalized ERB loudness of
+every frame of every power-of-2 window size straight from the signal
+(``ops.pitch.loudness``: on CUDA the DFT at the needed bins only, against a
+compact table of the DFT's columns cached per (nfft, bins, dtype, device);
+matplotlib-PSD semantics), per window a [nf x nERB] @ [nERB x nCand] kernel
+product, then the time lerp, the blend and a parabolic fine-tune on a
 1/768-octave grid (``ops.pitch.pick``).  ``swipep`` takes one utterance [L]
-or a batch [B, L]; on a CUDA tensor it runs the hand kernels, on a CPU
-tensor their plain versions (``ops.pitch``).
+or a batch [B, L] and returns every 1 ms step; ``f0_grid`` returns the
+engines' 5 ms f0 grid, on CUDA written by the pick kernel itself.  On a
+CUDA tensor they run the hand kernels, on a CPU tensor their plain versions
+(``ops.pitch``; the loudness through the full DFT bases).
 
 Replicated reference quirks: the last selected candidate row per window size
 is zero (SWIPE.py:147 loops to len(pc)-1); argmax at the top edge returns
@@ -199,12 +202,17 @@ def _window_tables(plan: SwipePlan, wp: _WindowPlan, dtype, dev):
     if not np.array_equal(wp.j, np.arange(wp.j[0], wp.j[0] + len(wp.j))):
         raise ValueError("a window's candidates are not one run")
     npadded = wp.pad_pre + plan.length + wp.pad_post
+    scale = stft_ops.psd_scale(wp.nfft, wp.window, plan.fs)
+    bins = np.union1d(wp.erb_lo, wp.erb_lo + 1)     # the needed bins
     return pitch_ops.Window(
         nfft=wp.nfft, hop=wp.hop, pad_pre=wp.pad_pre, pad_post=wp.pad_post,
         nf=stft_ops.frame_count(npadded, wp.nfft, wp.hop),
-        window=t_(wp.window),
-        scale=t_(stft_ops.psd_scale(wp.nfft, wp.window, plan.fs)),
+        window=t_(wp.window), scale=t_(scale),
         erb_lo=t_(wp.erb_lo, torch.long), erb_w=t_(wp.erb_w),
+        cols=(stft_ops.dft_columns(wp.nfft, bins, dtype, dev)
+              if dev.type == "cuda" else None),
+        scale_c=t_(scale[bins]),
+        erb_c=t_(np.searchsorted(bins, wp.erb_lo), torch.int32),
         kernel=t_(wp.kernel), j0=int(wp.j[0]), mu=t_(wp.mu),
         t_lo=t_(wp.t_lo, torch.long), t_w=t_(wp.t_w))
 
@@ -212,8 +220,11 @@ def _window_tables(plan: SwipePlan, wp: _WindowPlan, dtype, dev):
 def device_plan(plan: SwipePlan, dtype, device) -> pitch_ops.Plan:
     """Every constant the pitch stage reads, in ``dtype`` on ``device``:
     uploaded at the first call of a (plan, dtype, device), under a lock, and
-    read-only after (``run_streams``' threads share it).  The DFT bases are
-    cached apart (``ops.stft.dft_basis``)."""
+    read-only after (``run_streams``' threads share it): each window's
+    tables and, on CUDA, compact DFT table (cached apart,
+    ``ops.stft.dft_columns``; a CPU plan's loudness reads the full bases),
+    the fine-tune's tables, and the 5 ms f0 grid's times and resample
+    tables (``ops.pitch.resample_tables`` on the 1 ms steps' times)."""
     global device_plans_built
     key = (dtype, torch.device(device))
     dp = plan.devices.get(key)
@@ -233,14 +244,16 @@ def device_plan(plan: SwipePlan, dtype, device) -> pitch_ops.Plan:
             if len(plan.pc) < 3 or lens[1:-1].min() < 1:
                 raise ValueError("a pitch plan needs 3 candidates and a fine "
                                  "grid on every inner one")
+            t = t_(plan.t)
+            t_grid = t_(np.arange(0, plan.length - 1, step) / plan.fs)
             dp = pitch_ops.Plan(
                 windows=[_window_tables(plan, wp, dtype, dev)
                          for wp in plan.windows],
                 vinv=t_(plan.vinv), nftc=t_(plan.nftc),
                 nftc_mask=t_(plan.nftc_mask, torch.bool),
                 nftc_len=t_(lens, torch.int32),
-                log2pc_left=t_(plan.log2pc_left), t=t_(plan.t),
-                t_grid=t_(np.arange(0, plan.length - 1, step) / plan.fs),
+                log2pc_left=t_(plan.log2pc_left), t=t, t_grid=t_grid,
+                grid=pitch_ops.resample_tables(t, t_grid),
                 pc0=float(plan.pc[0]),
                 key=(plan.fs, plan.f0min, plan.f0max, plan.length))
             plan.devices[key] = dp
@@ -248,15 +261,33 @@ def device_plan(plan: SwipePlan, dtype, device) -> pitch_ops.Plan:
     return dp
 
 
+def _strengths(dp: pitch_ops.Plan, xb):
+    """Si [B, nf, nj] of every window size of signals xb [B, L]: the
+    loudness, then the candidate-kernel product."""
+    return [torch.matmul(ln, w.kernel.t())
+            for ln, w in zip(pitch_ops.loudness(xb, dp), dp.windows)]
+
+
 def swipep(plan: SwipePlan, x):
     """Full SWIPE' estimate of x [L] or [B, L]: [T, 3] or [B, T, 3] (t, f0,
-    strength).  Per window size one DFT product, the loudness kernel and
-    one kernel product, then one pick kernel (CUDA); the plain versions on a
-    CPU tensor."""
+    strength) at every 1 ms step.  The loudness kernel's two launches for
+    every window size, one kernel product per window, then one pick kernel
+    (CUDA); the plain versions on a CPU tensor."""
     dp = device_plan(plan, x.dtype, x.device)
     xb = x if x.dim() == 2 else x[None]
-    Si = [torch.matmul(w.kernel, pitch_ops.loudness(stft_ops.spectrum(
-        xb, w.nfft, w.hop, w.window, w.pad_pre, w.pad_post), w))
-        for w in dp.windows]
-    out = pitch_ops.pick(Si, dp)
+    out = pitch_ops.pick(_strengths(dp, xb), dp)
+    return out if x.dim() == 2 else out[0]
+
+
+def f0_grid(plan: SwipePlan, x):
+    """The engines' 5 ms f0 grid of x [L] or [B, L]: [Q, 3] or [B, Q, 3]
+    (t_grid, f0, strength), ``resample_f0_grid`` of ``swipep`` at the
+    device plan's ``t_grid``.  On CUDA the pick kernel picks only the steps
+    the grid reads and writes the grid itself (one launch); on a CPU tensor
+    ``resample_f0_grid(swipep(plan, x), t_grid)``."""
+    dp = device_plan(plan, x.dtype, x.device)
+    if x.device.type != "cuda":
+        return pitch_ops.resample_f0_grid(swipep(plan, x), dp.t_grid)
+    xb = x if x.dim() == 2 else x[None]
+    out = pitch_ops.pick(_strengths(dp, xb), dp, grid=True)
     return out if x.dim() == 2 else out[0]

@@ -3,38 +3,47 @@ PyTorch versions.
 
 The JAX package computes the pitch stage (eaqhm_tpu/models/swipe.py:203
 ``pitch_strength`` with eaqhm_tpu/ops/stft.py:46 ``specgram_psd``, :230
-``fine_tune``, :258 ``swipep``) as one XLA program per plan.  Here a call is,
-per window size of the plan: the DFT product of the windowed frames against
-the cached bases (``ops.stft.spectrum``, ``torch.matmul``), then
+``fine_tune``, :258 ``swipep``) as one XLA program per plan, and the engines'
+5 ms f0 grid (eaqhm_tpu/models/engine.py:39 ``resample_f0_grid``) after it.
+Here a call is
 
-  ``swipe_loudness``  a block per (utterance, frame): at the two bins of
-                      every ERB point |X|^2 times the PSD's factor, the ERB
-                      lerp, sqrt(max(0, .)), the frame's norm (summed in a
-                      fixed order) and the normalized loudness, written
-                      only as Ln [B, nerb, nf] (the PSD is never stored);
+  ``swipe_loudness``  from the signal [B, L], every window size in two
+                      launches: the windowed frames' DFT at the bins the
+                      ERB lerp reads only, against a compact table of JAX's
+                      cos | -sin columns (a small GEMM: FP64 tensor cores /
+                      FP32 FFMA), then |X|^2 times the PSD's factor, the ERB
+                      lerp, sqrt(max(0, .)), each frame's norm (summed in a
+                      fixed order) and the normalized loudness, written as
+                      Ln [B, nf, nerb] per window;
 
-then the candidate-kernel product ``Si = kernel @ Ln`` (``torch.matmul``), and
-once a call
+then per window the candidate-kernel product ``Si = Ln @ kernel^T`` [B, nf,
+nj] (``torch.matmul``), and once a call
 
-  ``swipe_pick``      a thread per (utterance, 1 ms step): each candidate's
+  ``swipe_pick``      a warp per (utterance, step): each candidate's
                       strength from every window size's Si (the time lerp,
                       the mu blend, added in window order from 0 as
-                      ``index_add_`` adds), the first argmax, the parabola
-                      ``vinv[il] @ y``, the fine grid's first argmax and the
-                      edge rule, written as [B, T, 3] (t, f0, strength); the
-                      strength matrix S is never stored.
+                      ``index_add_`` adds), the first argmax (a warp
+                      reduction), the parabola ``vinv[i] @ y``, the fine
+                      grid's first argmax and the edge rule; with
+                      ``grid=True`` only the two steps each point of the
+                      engines' 5 ms grid reads, written as that grid
+                      [B, Q, 3] with ``resample_f0_grid``'s rounding (the
+                      tables once per device plan, ``resample_tables``),
+                      else every step [B, T, 3] (t, f0, strength).
 
-The kernels round every product and sum on their own, as the torch ops of
-their plain versions do (``__dmul_rn`` / ``__dadd_rn`` and their float32
-forms, which the compiler does not contract into fused multiply-adds), so
-they pick the grid points the plain versions pick.  On a CUDA tensor ``loudness`` and ``pick``
-launch the kernels (a failed build or launch raises); on a CPU tensor they
-run the plain versions, ``loudness_reference`` and ``pick_reference``,
-counted in their ``.plain_calls``.  ``swipe_loudness.launches`` /
-``swipe_pick.launches`` count launches and ``.shapes`` record (B, nf, nerb,
-type) / (B, T, nc, windows, type, plan key) per launch; ``reset_counts()`` sets them
-to 0.  The pitch stage runs before the fused loop's graphs, so no launch is
-recorded into one.
+The kernels round every product and sum of their epilogues on their own, as
+the torch ops of their plain versions do (``__dmul_rn`` / ``__dadd_rn`` and
+their float32 forms), so swipe_pick is its plain version's function.  On a
+CUDA tensor ``loudness`` and ``pick`` launch the kernels (a failed build or
+launch raises); on a CPU tensor they run the plain versions,
+``loudness_reference(ops.stft.spectrum(...))`` (the full DFT bases) and
+``pick_reference`` / ``grid_reference``, counted in their ``.plain_calls``.
+``loudness_table_reference`` is the loudness's plain form through the
+compact table.  ``swipe_loudness.launches`` / ``swipe_pick.launches`` count
+device launches (two a loudness call) and ``.shapes`` record (B, per window
+(nfft, nf, nerb, ks), type, plan key) / (B, items, nc, windows, type, plan
+key, grid) per call; ``reset_counts()`` sets them to 0.  The pitch stage
+runs before the fused loop's graphs, so no launch is recorded into one.
 """
 from __future__ import annotations
 
@@ -45,9 +54,16 @@ from typing import List, NamedTuple
 import torch
 
 from eaqhm_torch.kernels import build
+from eaqhm_torch.ops import stft
 
 MAX_WINDOWS = 16          # window sizes a plan may have (kernels/csrc/swipe.cu)
+MAX_CANDIDATES = 512      # candidates swipe_pick takes (16 a lane)
+LOUD_ROWS, LOUD_BINS = 128, 64  # swipe_loudness's DFT tile (frames x bins)
+MAX_SPLITS = 8            # depth slices of a swipe_loudness launch at most
+MAX_ERB = 1024            # ERB points a window of swipe_loudness may have
 _lock = threading.Lock()
+_prepared = set()         # devices whose kernel attributes are set
+_sms = {}                 # device index -> its SMs (the depth splits fill them)
 
 
 class Window(NamedTuple):
@@ -61,11 +77,25 @@ class Window(NamedTuple):
     scale: torch.Tensor       # [nbins] PSD factor (doubling / (fs sum w^2))
     erb_lo: torch.Tensor      # [nerb] int64: bin below each ERB point
     erb_w: torch.Tensor       # [nerb] lerp weight
+    cols: torch.Tensor        # [nfft, nu, 2] the needed bins' (cos, -sin);
+                              # None on a CPU plan (see ``table``)
+    scale_c: torch.Tensor     # [nu] PSD factor of each needed bin
+    erb_c: torch.Tensor       # [nerb] int32: erb_lo's index among them
     kernel: torch.Tensor      # [nj, nerb] candidate kernels
     j0: int                   # first candidate of the window's rows
     mu: torch.Tensor          # [nj] blend weights
     t_lo: torch.Tensor        # [T] int64: frame below each 1 ms step
     t_w: torch.Tensor         # [T] lerp weight
+
+
+class Resample(NamedTuple):
+    """``resample_f0_grid``'s tables for query times q [..., Q] on rows at
+    times [..., T]: the row at or before each query (pc), the next (nx),
+    the lerp weight and the queries before the first row."""
+    pc: torch.Tensor          # [..., Q] int64
+    nx: torch.Tensor          # [..., Q] int64
+    g: torch.Tensor           # [..., Q]
+    below: torch.Tensor       # [..., Q] bool
 
 
 class Plan(NamedTuple):
@@ -78,6 +108,7 @@ class Plan(NamedTuple):
     log2pc_left: torch.Tensor  # [nc]
     t: torch.Tensor           # [T] output times
     t_grid: torch.Tensor      # [Q] the engines' 5 ms f0-grid times
+    grid: Resample            # the f0 grid's tables on t ([Q] each)
     pc0: float                # the lowest candidate (the edge rule's f0)
     key: tuple                # (fs, f0min, f0max, length) of the plan
 
@@ -108,15 +139,46 @@ def _ptr(t) -> int:
     return t.data_ptr()
 
 
-def _launch(counter, sym: str, dev: torch.device, shape, *args) -> None:
+def _index(device) -> int:
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def library(device):
+    """The kernel library, with the DFT kernel's shared-memory attribute
+    set on ``device`` and the device's SM count read (once per device,
+    outside any capture)."""
     lib = build.load("swipe")
+    idx = _index(device)
+    if idx not in _prepared:
+        with _lock, torch.cuda.device(idx):
+            err = lib.swipe_prepare()
+            if err != 0:
+                raise RuntimeError(f"swipe: setting the DFT kernel's "
+                                   f"shared memory on cuda:{idx} failed: "
+                                   f"cudaError {err}")
+            _sms[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
+            _prepared.add(idx)
+    return lib
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (read by ``library``)."""
+    library(device)
+    return _sms[_index(device)]
+
+
+def _launch(counter, sym: str, dev: torch.device, shape, *args,
+            launches: int = 1) -> None:
+    lib = library(dev)
     with torch.cuda.device(dev):
         err = getattr(lib, sym)(*args,
                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{sym} kernel launch failed: cudaError {err}")
     with _lock:
-        counter.launches += 1
+        counter.launches += launches
         counter.shapes.append(shape)
 
 
@@ -127,93 +189,187 @@ def _count_plain(entry) -> None:
 
 # ---- swipe_loudness ----
 
+def _ln_from_psd(p_lo, p_hi, w: Window):
+    """Ln [..., nerb] from the PSD at each ERB point's two bins: their lerp,
+    sqrt(max(0, .)) and each frame's unit norm (a zero frame stays 0)."""
+    Pe = p_lo * (1 - w.erb_w) + p_hi * w.erb_w
+    L = torch.sqrt(torch.clamp(Pe, min=0.0))
+    norms = torch.sqrt(torch.sum(L * L, dim=-1, keepdim=True))
+    return torch.where(norms > 0, L / torch.where(norms > 0, norms, 1.0),
+                       torch.zeros_like(L))
+
+
 def loudness_reference(spec, w: Window):
-    """Normalized ERB loudness Ln [B, nerb, nf] of spectra re | im [B, nf,
+    """Normalized ERB loudness Ln [B, nf, nerb] of spectra re | im [B, nf,
     2 nbins] (torch ops): |X|^2 times the PSD factor at the two bins of each
-    ERB point, their lerp, sqrt(max(0, .)) and each frame's unit norm (a
-    zero frame stays 0)."""
+    ERB point, their lerp, sqrt(max(0, .)) and each frame's unit norm."""
     nb = spec.shape[-1] // 2
-    lo, hi = w.erb_lo, w.erb_lo + 1
 
     def psd(idx):
         re, im = spec[..., idx], spec[..., nb + idx]
         return (re * re + im * im) * w.scale[idx]
 
-    Pe = psd(lo) * (1 - w.erb_w) + psd(hi) * w.erb_w        # [B, nf, nerb]
-    L = torch.sqrt(torch.clamp(Pe, min=0.0))
-    norms = torch.sqrt(torch.sum(L * L, dim=-1, keepdim=True))
-    Ln = torch.where(norms > 0, L / torch.where(norms > 0, norms, 1.0),
-                     torch.zeros_like(L))
-    return Ln.transpose(-1, -2).contiguous()
+    return _ln_from_psd(psd(w.erb_lo), psd(w.erb_lo + 1), w)
 
 
-def loudness_call(spec, w: Window):
-    """One swipe_loudness launch's output and arguments (no launch)."""
-    B, nf, two_nb = spec.shape
-    nerb = w.erb_lo.shape[0]
-    out = torch.empty((B, nerb, nf), dtype=spec.dtype, device=spec.device)
-    args = (_ptr(spec), _ptr(w.erb_lo), _ptr(w.erb_w), _ptr(w.scale),
-            _ptr(out), B, nf, two_nb // 2, nerb)
-    return out, f"swipe_loudness_{_real(spec.dtype)}", args
+def table(w: Window, dtype, device) -> torch.Tensor:
+    """The window's compact DFT table [nfft, nu, 2]: a CUDA plan's own; a
+    CPU plan keeps none (its loudness reads the full bases), so it comes
+    from ``ops.stft.dft_columns``' cache, built at its first request."""
+    if w.cols is not None:
+        return w.cols
+    bins = torch.unique(torch.cat([w.erb_lo, w.erb_lo + 1]))
+    return stft.dft_columns(w.nfft, bins.cpu().numpy(), dtype, device)
 
 
-def _check_spec(spec, w: Window):
-    if spec.dim() != 3 or not spec.is_contiguous():
-        raise ValueError(f"swipe_loudness takes contiguous spectra [B, nf, "
-                         f"2 nbins], not {tuple(spec.shape)}")
-    if spec.shape[-1] != 2 * (w.nfft // 2 + 1):
-        raise ValueError(f"spectra of {spec.shape[-1]} columns for nfft "
-                         f"{w.nfft}")
-    for t in (w.erb_lo, w.erb_w, w.scale):
-        if t.device != spec.device or not t.is_contiguous():
-            raise ValueError("the window's tables must be contiguous and on "
-                             "the spectra's device")
-    if w.erb_w.dtype != spec.dtype or w.scale.dtype != spec.dtype:
-        raise TypeError("the window's tables must have the spectra's dtype")
+def loudness_table_reference(x, w: Window):
+    """Ln [B, nf, nerb] of signals x [B, L] through the compact table, as
+    the kernel forms it (torch ops): the frames (zero padding, hop), x * w,
+    their product with the needed bins' (cos, -sin), |X|^2 times each bin's
+    factor, then the ERB lerp, the loudness and its norm."""
+    xp = torch.nn.functional.pad(x, (w.pad_pre, w.pad_post))
+    frames = xp.unfold(-1, w.nfft, w.hop)
+    cols = table(w, x.dtype, x.device)
+    spec = torch.matmul(frames * w.window, cols.reshape(w.nfft, -1))
+    re, im = spec[..., 0::2], spec[..., 1::2]
+    P = (re * re + im * im) * w.scale_c                   # [B, nf, nu]
+    lo = w.erb_c.long()
+    return _ln_from_psd(P[..., lo], P[..., lo + 1], w)
 
 
-def loudness(spec, w: Window):
-    """Ln [B, nerb, nf] of spectra [B, nf, 2 nbins] (``ops.stft.spectrum``):
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if spec.device.type != "cuda":
+def loudness_splits(M: int, nu: int, nfft: int, sms: int) -> int:
+    """The depth slices of one window's DFT over M frames and nu needed
+    bins on a card of ``sms`` SMs.  A window whose tiles fill a third of
+    the card is not split (the slices' partial sums would cost more than
+    they give); a smaller one (the SA19 plans' 130-258 frames, the 48 kHz
+    plans' 4-13) is split in two while its tiles are fewer than the SMs, a
+    slice keeps at least 128 samples and there are at most MAX_SPLITS, so
+    that its table streams through every SM."""
+    base = -(-M // LOUD_ROWS) * -(-nu // LOUD_BINS)
+    ks = 1
+    if base >= sms // 3:
+        return ks
+    while (base * ks < sms and ks < MAX_SPLITS and nfft % (64 * ks) == 0
+           and nfft // (2 * ks) >= 128):
+        ks *= 2
+    return ks
+
+
+def loudness_call(x, plan: Plan, sms: int):
+    """One swipe_loudness call's outputs (Ln of each window size), its
+    scratch and arguments (no launch) on a card of ``sms`` SMs.  Returns
+    (outs, sym, args, keep, splits); keep holds the windows' argument
+    arrays, the scratch and the tables, to be kept alive."""
+    B, L = x.shape
+    ws = plan.windows
+    n = len(ws)
+    cols = [table(w, x.dtype, x.device) for w in ws]
+    outs, scratch, splits = [], [], []
+    for w in ws:
+        nu, M = w.scale_c.shape[0], B * w.nf
+        ks = loudness_splits(M, nu, w.nfft, sms)
+        splits.append(ks)
+        outs.append(torch.empty((B, w.nf, w.erb_c.shape[0]), dtype=x.dtype,
+                                device=x.device))
+        scratch.append(torch.empty((M, nu) if ks == 1 else (ks, M, nu, 2),
+                                   dtype=x.dtype, device=x.device))
+    ptrs = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
+    host = (ptrs(*[_ptr(w.window) for w in ws]),
+            ptrs(*[_ptr(c) for c in cols]),
+            ptrs(*[_ptr(w.scale_c) for w in ws]),
+            ptrs(*[_ptr(w.erb_c) for w in ws]),
+            ptrs(*[_ptr(w.erb_w) for w in ws]),
+            ptrs(*[_ptr(o) for o in outs]),
+            ptrs(*[_ptr(t) for t in scratch]),
+            ints(*[w.nf for w in ws]), ints(*[w.nfft for w in ws]),
+            ints(*[w.hop for w in ws]), ints(*[w.pad_pre for w in ws]),
+            ints(*[w.scale_c.shape[0] for w in ws]),
+            ints(*[w.erb_c.shape[0] for w in ws]), ints(*splits))
+    args = (_ptr(x), B, L, n,
+            *[ctypes.cast(h, ctypes.c_void_p) for h in host])
+    return (outs, f"swipe_loudness_{_real(x.dtype)}", args,
+            (host, scratch, cols), splits)
+
+
+def _check_signal(x, plan: Plan):
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"swipe_loudness takes contiguous signals [B, L], "
+                         f"not {tuple(x.shape)}")
+    if not 0 < len(plan.windows) <= MAX_WINDOWS:
+        raise ValueError(f"swipe_loudness takes 1 to {MAX_WINDOWS} window "
+                         f"sizes, not {len(plan.windows)}")
+    for w in plan.windows:
+        npad = w.pad_pre + x.shape[1] + w.pad_post
+        if stft.frame_count(npad, w.nfft, w.hop) != w.nf:
+            raise ValueError(f"signals of {x.shape[1]} samples for a window "
+                             f"of {w.nf} frames")
+        cols = table(w, x.dtype, x.device)
+        if cols.shape != (w.nfft, w.scale_c.shape[0], 2):
+            raise ValueError("the compact table does not fit the window")
+        if w.erb_c.shape[0] > MAX_ERB:
+            raise ValueError(f"swipe_loudness takes at most {MAX_ERB} ERB "
+                             f"points, not {w.erb_c.shape[0]}")
+        for t in (w.window, cols, w.scale_c, w.erb_c, w.erb_w):
+            if t.device != x.device or not t.is_contiguous():
+                raise ValueError("the window's tables must be contiguous and "
+                                 "on the signals' device")
+        for t in (w.window, cols, w.scale_c, w.erb_w):
+            if t.dtype != x.dtype:
+                raise TypeError("the window's tables must have the signals' "
+                                "dtype")
+        if w.erb_c.dtype != torch.int32:
+            raise TypeError("erb_c must be int32")
+
+
+def loudness(x, plan: Plan):
+    """Ln [B, nf, nerb] of every window size of signals x [B, L]: on a CUDA
+    tensor the kernel (two launches: the DFT of every window, then the ERB
+    epilogue), on a CPU tensor the plain version on the full DFT bases
+    (``loudness_reference(ops.stft.spectrum(...))``) per window."""
+    if x.device.type != "cuda":
         _count_plain(loudness)
-        return loudness_reference(spec, w)
-    _check_spec(spec, w)
-    out, sym, args = loudness_call(spec, w)
-    B, nf, nerb = spec.shape[0], spec.shape[1], w.erb_lo.shape[0]
-    _launch(swipe_loudness, sym, spec.device,
-            (B, nf, nerb, str(spec.dtype)[6:]), *args)
-    return out
+        return [loudness_reference(stft.spectrum(
+            x, w.nfft, w.hop, w.window, w.pad_pre, w.pad_post), w)
+            for w in plan.windows]
+    _check_signal(x, plan)
+    outs, sym, args, _keep, splits = loudness_call(x, plan,
+                                                   sm_count(x.device))
+    _launch(swipe_loudness, sym, x.device,
+            (x.shape[0], tuple((w.nfft, w.nf, w.erb_c.shape[0], ks)
+                               for w, ks in zip(plan.windows, splits)),
+             str(x.dtype)[6:], plan.key), *args, launches=2)
+    return outs
 
 
 # ---- swipe_pick ----
 
 def blend_reference(Si, plan: Plan):
-    """The blended strength S [B, nc, T] of every window size's Si [B, nj,
-    nf] (torch ops): the time lerp onto the 1 ms steps and the mu blend,
+    """The blended strength S [B, T, nc] of every window size's Si [B, nf,
+    nj] (torch ops): the time lerp onto the 1 ms steps and the mu blend,
     added into zeros in window order (reference SWIPE.py:92-105)."""
     B = Si[0].shape[0]
     nc, T = plan.vinv.shape[0], plan.t.shape[0]
-    S = torch.zeros((B, nc, T), dtype=Si[0].dtype, device=Si[0].device)
+    S = torch.zeros((B, T, nc), dtype=Si[0].dtype, device=Si[0].device)
     for w, si in zip(plan.windows, Si):
-        nj = si.shape[1]
-        tw = w.t_w
-        Sit = si[..., w.t_lo] * (1 - tw) + si[..., w.t_lo + 1] * tw
+        nj = si.shape[2]
+        tw = w.t_w[:, None]
+        Sit = si[:, w.t_lo, :] * (1 - tw) + si[:, w.t_lo + 1, :] * tw
         j = torch.arange(w.j0, w.j0 + nj, device=si.device)
-        S.index_add_(1, j, w.mu[:, None] * Sit)
+        S.index_add_(2, j, w.mu * Sit)
     return S
 
 
 def fine_tune_reference(S, plan: Plan):
-    """Parabolic fine-tune of S [..., nc, T] on the 1/768-octave grid
+    """Parabolic fine-tune of S [..., T, nc] on the 1/768-octave grid
     (reference SWIPE.py:108-131; torch ops): (p, s) [..., T].  A top or
     bottom edge argmax returns pc[0] and the coarse maximum."""
     dtype = S.dtype
-    nc = S.shape[-2]
-    smax = S.amax(dim=-2)
-    i = S.argmax(dim=-2)                 # first maximum, as jnp.argmax
+    nc = S.shape[-1]
+    smax = S.amax(dim=-1)
+    i = S.argmax(dim=-1)                 # first maximum, as jnp.argmax
     il = i.clamp(1, nc - 2)
-    y = [torch.gather(S, -2, (il + d).unsqueeze(-2)).squeeze(-2)
+    y = [torch.gather(S, -1, (il + d).unsqueeze(-1)).squeeze(-1)
          for d in (-1, 0, 1)]
     v = plan.vinv[il]                                        # [..., T, 3, 3]
     # vinv[il] @ y with its products and sums written out in one order
@@ -233,20 +389,72 @@ def fine_tune_reference(S, plan: Plan):
 
 
 def pick_reference(Si, plan: Plan):
-    """(t, f0, strength) [B, T, 3] from every window size's Si [B, nj, nf]
+    """(t, f0, strength) [B, T, 3] from every window size's Si [B, nf, nj]
     (torch ops: ``blend_reference``, then ``fine_tune_reference``)."""
     p, s = fine_tune_reference(blend_reference(Si, plan), plan)
     return torch.stack([plan.t.expand_as(p), p, s], dim=-1)
 
 
-def pick_call(Si, plan: Plan):
+def resample_tables(times, q) -> Resample:
+    """``resample_f0_grid``'s tables (torch ops) for query times q [..., Q]
+    on rows at times [..., T] (both contiguous, one dtype and device)."""
+    T = times.shape[-1]
+    previ = torch.searchsorted(times, q, right=True) - 1
+    below = previ < 0
+    pc = previ.clamp(0, T - 1)
+    nx = (pc + 1).clamp(0, T - 1)
+    t_pc, t_nx = times.gather(-1, pc), times.gather(-1, nx)
+    denom = t_nx - t_pc
+    ok = denom != 0
+    zero = torch.zeros((), dtype=times.dtype, device=times.device)
+    g = torch.where(ok, (q - t_pc) / torch.where(ok, denom, 1.0), zero)
+    g = torch.where(below | (t_pc == q), zero, g)
+    return Resample(pc, nx, g, below)
+
+
+def resample_rows(rows, r: Resample, q):
+    """Rows [..., T, C] (col 0 the time) resampled by the tables r [..., Q]
+    at the query times q [..., Q] (torch ops): [..., Q, C], col 0 = q."""
+    def rows_at(idx):
+        return rows[..., 1:].gather(
+            -2, idx[..., None].expand(*idx.shape, rows.shape[-1] - 1))
+
+    out = rows_at(r.pc) * (1 - r.g[..., None]) + rows_at(r.nx) * r.g[..., None]
+    out = torch.where(r.below[..., None], rows[..., :1, 1:], out)
+    return torch.cat([q[..., None], out], dim=-1)
+
+
+def resample_f0_grid(f0s, tq):
+    """Linear row resampler == reference `getLinear` (functions.py:644-681).
+
+    f0s: [..., T, C] rows with col 0 = time; tq: [Q] query times (same dtype
+    and device).  Returns [..., Q, C] with col 0 = tq; each leading index is
+    resampled on its own rows (``resample_tables``, then ``resample_rows``).
+    """
+    times = f0s[..., 0].contiguous()                          # [..., T]
+    q = tq.expand(*times.shape[:-1], tq.shape[-1]).contiguous()
+    return resample_rows(f0s, resample_tables(times, q), q)
+
+
+def grid_reference(Si, plan: Plan):
+    """The engines' f0 grid [B, Q, 3] from every window size's Si (torch
+    ops): ``pick_reference``'s rows resampled onto ``plan.t_grid`` with the
+    plan's tables, as ``resample_f0_grid`` resamples them."""
+    rows = pick_reference(Si, plan)
+    B, Q = rows.shape[0], plan.t_grid.shape[0]
+    r = Resample(*(t.expand(B, Q) for t in plan.grid))
+    return resample_rows(rows, r, plan.t_grid.expand(B, Q))
+
+
+def pick_call(Si, plan: Plan, grid: bool = False):
     """One swipe_pick launch's output and arguments (no launch); the host
     arrays of the windows' pointers are returned to be kept alive."""
     n = len(plan.windows)
     B, dtype, dev = Si[0].shape[0], Si[0].dtype, Si[0].device
     nc, gmax = plan.nftc.shape
     T = plan.t.shape[0]
-    out = torch.empty((B, T, 3), dtype=dtype, device=dev)
+    Q = plan.t_grid.shape[0] if grid else 0
+    out = torch.empty((B, Q if grid else T, 3), dtype=dtype, device=dev)
     ptrs = ctypes.c_void_p * n
     ints = ctypes.c_int * n
     host = (ptrs(*[_ptr(s) for s in Si]),
@@ -254,12 +462,14 @@ def pick_call(Si, plan: Plan):
             ptrs(*[_ptr(w.t_w) for w in plan.windows]),
             ptrs(*[_ptr(w.mu) for w in plan.windows]),
             ints(*[w.j0 for w in plan.windows]),
-            ints(*[s.shape[1] for s in Si]),
-            ints(*[s.shape[2] for s in Si]))
+            ints(*[s.shape[2] for s in Si]),
+            ints(*[s.shape[1] for s in Si]))
+    tabs = ((_ptr(plan.grid.pc), _ptr(plan.grid.nx), _ptr(plan.grid.g),
+             _ptr(plan.grid.below)) if grid else (0,) * 4)
     args = (*[ctypes.cast(h, ctypes.c_void_p) for h in host], n,
             _ptr(plan.vinv), _ptr(plan.nftc), _ptr(plan.nftc_len),
-            _ptr(plan.log2pc_left), _ptr(plan.t), float(plan.pc0), _ptr(out),
-            B, nc, T, gmax)
+            _ptr(plan.log2pc_left), _ptr(plan.t_grid if grid else plan.t),
+            float(plan.pc0), *tabs, Q, _ptr(out), B, nc, T, gmax)
     return out, f"swipe_pick_{_real(dtype)}", args, host
 
 
@@ -268,38 +478,44 @@ def _check_pick(Si, plan: Plan):
         raise ValueError(f"swipe_pick takes one Si per window size (at most "
                          f"{MAX_WINDOWS}), got {len(Si)} for "
                          f"{len(plan.windows)}")
+    if not 3 <= plan.vinv.shape[0] <= MAX_CANDIDATES:
+        raise ValueError(f"swipe_pick takes 3 to {MAX_CANDIDATES} "
+                         f"candidates, not {plan.vinv.shape[0]}")
     B, dtype, dev = Si[0].shape[0], Si[0].dtype, Si[0].device
     for s, w in zip(Si, plan.windows):
         if (s.dim() != 3 or s.shape[0] != B or s.dtype != dtype
                 or s.device != dev or not s.is_contiguous()
-                or s.shape[1] != w.mu.shape[0]):
-            raise ValueError(f"Si must be contiguous [B, nj, nf] of one "
+                or s.shape[2] != w.mu.shape[0]):
+            raise ValueError(f"Si must be contiguous [B, nf, nj] of one "
                              f"dtype and device, got {tuple(s.shape)}")
-        if s.shape[2] != w.nf:
-            raise ValueError(f"Si of {s.shape[2]} frames for a window of "
+        if s.shape[1] != w.nf:
+            raise ValueError(f"Si of {s.shape[1]} frames for a window of "
                              f"{w.nf}")
         if w.t_w.dtype != dtype or w.mu.dtype != dtype:
             raise TypeError("the plan's tables must have Si's dtype")
     for t in (plan.vinv, plan.nftc, plan.nftc_len, plan.log2pc_left,
-              plan.t):
+              plan.t, plan.t_grid, *plan.grid):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("the plan's tables must be contiguous and on "
                              "Si's device")
-        if t is not plan.nftc_len and t.dtype != dtype:
+    for t in (plan.vinv, plan.nftc, plan.log2pc_left, plan.t, plan.t_grid,
+              plan.grid.g):
+        if t.dtype != dtype:
             raise TypeError("the plan's tables must have Si's dtype")
 
 
-def pick(Si, plan: Plan):
-    """(t, f0, strength) [B, T, 3] from every window size's Si [B, nj, nf]:
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
+def pick(Si, plan: Plan, grid: bool = False):
+    """From every window size's Si [B, nf, nj]: (t, f0, strength) [B, T, 3]
+    at every step, or with grid the engines' f0 grid [B, Q, 3]; the kernel
+    on CUDA tensors, the plain version on CPU tensors."""
     if Si[0].device.type != "cuda":
         _count_plain(pick)
-        return pick_reference(Si, plan)
+        return (grid_reference if grid else pick_reference)(Si, plan)
     _check_pick(Si, plan)
-    out, sym, args, _host = pick_call(Si, plan)
-    B, T, nc = Si[0].shape[0], plan.t.shape[0], plan.vinv.shape[0]
+    out, sym, args, _host = pick_call(Si, plan, grid)
     _launch(swipe_pick, sym, Si[0].device,
-            (B, T, nc, len(Si), str(Si[0].dtype)[6:], plan.key), *args)
+            (Si[0].shape[0], out.shape[1], plan.vinv.shape[0], len(Si),
+             str(Si[0].dtype)[6:], plan.key, grid), *args)
     return out
 
 

@@ -7,11 +7,16 @@ doubled, divided by ``fs * sum(w^2)``.  The downstream column normalization
 cancels constant scaling but not the frequency-dependent doubling.
 
 Frames start at sample 0 with hop ``NFFT - noverlap``; frame count is
-``(len(x) - NFFT) // hop + 1``; times are frame centers.  The DFT is one
-matrix product against the bases cos | -sin, built on the host in float64
-once per (nfft, dtype, device), cast to the dtype as the JAX package casts
-them (eaqhm_tpu/ops/stft.py:24-30), and kept on the device (``dft_basis``,
-at most ``BASIS_CACHE`` of them, least recently used dropped first).
+``(len(x) - NFFT) // hop + 1``; times are frame centers.  The plain DFT is
+one matrix product against the bases cos | -sin, built on the host in
+float64 once per (nfft, dtype, device), cast to the dtype as the JAX package
+casts them (eaqhm_tpu/ops/stft.py:24-30), and kept on the device
+(``dft_basis``, at most ``BASIS_CACHE`` of them, least recently used dropped
+first): the CPU path and the plain versions use them.  The pitch kernel
+``swipe_loudness`` reads instead a compact table of the columns a window's
+ERB lerp needs (``dft_columns``: the same expression evaluated at those
+bins only, so its entries are the bases' bit for bit), cached per (nfft,
+bins, dtype, device); only a CUDA plan keeps one.
 """
 from __future__ import annotations
 
@@ -25,8 +30,12 @@ import torch
 BASIS_CACHE = 8
 _bases = OrderedDict()           # (nfft, dtype, device) -> [nfft, 2 nbins]
 _bases_lock = threading.Lock()
-_building = {}                   # (nfft, dtype, device) -> its build's lock
+_building = {}                   # a key of either cache -> its build's lock
 bases_built = 0                  # host builds (each an upload) so far
+# compact tables of needed columns, per (nfft, bins, dtype, device)
+COLUMNS_CACHE = 16
+_columns = OrderedDict()
+columns_built = 0
 
 
 def _dft_bases(nfft: int):
@@ -37,35 +46,85 @@ def _dft_bases(nfft: int):
     return np.cos(ang), -np.sin(ang)
 
 
-def dft_basis(nfft: int, dtype, device) -> torch.Tensor:
-    """The bases cos | -sin [nfft, 2 (nfft//2+1)] in ``dtype`` on
-    ``device``: built on the host and uploaded at the first request of a
-    (nfft, dtype, device), read from the cache after.  Safe from several
-    threads: one builds a key while the others asking for it wait; the
-    cache's lock is not held during the build, so requests for other keys
-    go on."""
-    global bases_built
-    key = (int(nfft), dtype, torch.device(device))
+def _cached(cache, key, limit: int, make):
+    """cache[key], made by ``make()`` at the first request of the key and
+    kept after (at most ``limit`` entries, least recently used dropped
+    first).  Safe from several threads: one makes a key while the others
+    asking for it wait; the cache's lock is not held while it is made, so
+    requests for other keys go on.  Returns (value, whether it was made)."""
     with _bases_lock:
-        basis = _bases.get(key)
-        if basis is not None:
-            _bases.move_to_end(key)
-            return basis
+        value = cache.get(key)
+        if value is not None:
+            cache.move_to_end(key)
+            return value, False
         building = _building.setdefault(key, threading.Lock())
     with building:
         with _bases_lock:
-            basis = _bases.get(key)
-        if basis is None:
-            cosb, sinb = _dft_bases(nfft)
-            host = np.concatenate([cosb, sinb], axis=1).astype(
-                str(dtype)[6:])
-            basis = torch.from_numpy(host).to(key[2])
-            with _bases_lock:
-                _bases[key] = basis
-                bases_built += 1
-                while len(_bases) > BASIS_CACHE:
-                    _bases.popitem(last=False)
+            value = cache.get(key)
+        if value is not None:
+            return value, False
+        value = make()
+        with _bases_lock:
+            cache[key] = value
+            while len(cache) > limit:
+                cache.popitem(last=False)
+    return value, True
+
+
+def dft_basis(nfft: int, dtype, device) -> torch.Tensor:
+    """The bases cos | -sin [nfft, 2 (nfft//2+1)] in ``dtype`` on
+    ``device``: built on the host and uploaded at the first request of a
+    (nfft, dtype, device), read from the cache after (``_cached``)."""
+    global bases_built
+    key = (int(nfft), dtype, torch.device(device))
+
+    def make():
+        cosb, sinb = _dft_bases(nfft)
+        host = np.concatenate([cosb, sinb], axis=1).astype(str(dtype)[6:])
+        return torch.from_numpy(host).to(key[2])
+
+    basis, made = _cached(_bases, key, BASIS_CACHE, make)
+    if made:
+        with _bases_lock:
+            bases_built += 1
     return basis
+
+
+def _dft_columns(nfft: int, bins) -> np.ndarray:
+    """The columns ``bins`` of the one-sided DFT bases (host float64), each
+    bin's (cos, -sin) side by side: [nfft, len(bins), 2].  The bases'
+    expression (``_dft_bases``) evaluated at those k only."""
+    n = np.arange(nfft)[:, None]
+    k = np.asarray(bins, dtype=np.int64)[None, :]
+    ang = 2.0 * np.pi * n * k / nfft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+
+
+def dft_columns(nfft: int, bins, dtype, device) -> torch.Tensor:
+    """The compact table [nfft, nu, 2] of the needed bins ``bins`` (sorted
+    int array) in ``dtype`` on ``device``, built on the host at the first
+    request of a (nfft, bins, dtype, device) and cached after (``_cached``,
+    at most ``COLUMNS_CACHE``; keyed by the bins, not the plan, so plans of
+    many lengths share one table)."""
+    global columns_built
+    bins = np.asarray(bins, dtype=np.int64)
+    key = (int(nfft), bins.tobytes(), dtype, torch.device(device))
+
+    def make():
+        host = _dft_columns(nfft, bins).astype(str(dtype)[6:])
+        return torch.from_numpy(host).to(key[3])
+
+    table, made = _cached(_columns, key, COLUMNS_CACHE, make)
+    if made:
+        with _bases_lock:
+            columns_built += 1
+    return table
+
+
+def columns_cache_bytes() -> int:
+    """Bytes the cached compact tables hold on their devices."""
+    with _bases_lock:
+        return sum(t.numel() * t.element_size() for t in _columns.values())
 
 
 def basis_cache_bytes() -> int:

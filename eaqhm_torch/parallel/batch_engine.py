@@ -484,9 +484,7 @@ def _prepare(sig_np, lens, geom: BatchGeometry, config: EaqhmConfig, fs: int,
     f0min, f0max = config.pitch_limits
     plan = swipe_mod.make_plan(float(fs), float(f0min), float(f0max), L)
     x = torch.as_tensor(sig_np[rows], dtype=dtype, device=device)
-    t_grid = swipe_mod.device_plan(plan, x.dtype, x.device).t_grid
-    f0 = engine_mod.resample_f0_grid(swipe_mod.swipep(plan, x),
-                                     t_grid).cpu().numpy()
+    f0 = swipe_mod.f0_grid(plan, x).cpu().numpy()
     f0_grid = np.zeros((Bp,) + f0.shape[1:])
     f0_grid[rows] = f0
     # the tier plan is fixed across adaptations: membership comes from the

@@ -1,7 +1,8 @@
 """The pitch stage's plain versions (ops.pitch: the loudness and the pick
 that the CUDA kernels swipe_loudness and swipe_pick compute), its device
-plan and DFT-basis caches, and the batch engine's batched pitch call,
-against the JAX package in float64 on the CPU."""
+plan and DFT-basis caches, the kernels' launch arguments, and the batch
+engine's batched pitch call, against the JAX package in float64 on the
+CPU."""
 import ctypes
 import os
 
@@ -76,11 +77,11 @@ def test_plain_versions_composed_match_jax(name):
         spec = tstft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
                               w.pad_post)
         ln = pitch.loudness_reference(spec, w)
-        assert ln.shape == (1, w.erb_lo.shape[0], w.nf)
-        Si.append(torch.matmul(w.kernel, ln))
+        assert ln.shape == (1, w.nf, w.erb_lo.shape[0])
+        Si.append(torch.matmul(ln, w.kernel.t()))
     S = pitch.blend_reference(Si, dp)[0]
-    np.testing.assert_allclose(S.numpy(), S_j, rtol=1e-9, atol=1e-12)
-    p, st = pitch.fine_tune_reference(torch.as_tensor(S_j.copy()), dp)
+    np.testing.assert_allclose(S.numpy().T, S_j, rtol=1e-9, atol=1e-12)
+    p, st = pitch.fine_tune_reference(torch.as_tensor(S_j.T.copy()), dp)
     np.testing.assert_allclose(p.numpy(), p_j, rtol=1e-9)
     np.testing.assert_allclose(st.numpy(), s_j, rtol=1e-9, atol=1e-12)
     out = pitch.pick_reference(Si, dp)[0]
@@ -102,7 +103,7 @@ def test_batched_swipep_matches_jax_per_utterance():
     x = torch.as_tensor(xs)
     got = te.resample_f0_grid(tsw.swipep(tplan, x),
                               tsw.device_plan(tplan, x.dtype, x.device).t_grid)
-    assert pitch.loudness.plain_calls == len(tplan.windows)
+    assert pitch.loudness.plain_calls == 1
     assert pitch.pick.plain_calls == 1
     assert got.shape == (3, len(tq), 3)
     for b in range(3):
@@ -198,37 +199,46 @@ def test_basis_cache_equals_jax_bases(dtype):
     assert len(tstft._bases) == tstft.BASIS_CACHE
 
 
+def _decl_kinds(args, decl):
+    """Each argument fits the ctypes type the library declares for it."""
+    assert len(args) + 1 == len(decl)              # + the stream
+    for a, t in zip(args, decl):
+        kind = {ctypes.c_void_p: (int, ctypes.c_void_p),
+                ctypes.c_int: (int,), ctypes.c_double: (float,)}[t]
+        assert isinstance(a, kind), (a, t)
+
+
 def test_kernel_arguments_match_the_library():
     """Each launch's arguments (built here on CPU tensors, no launch) have
-    the count and kinds the library's C functions declare."""
+    the count and kinds the library's C functions declare: swipe_loudness
+    from the signal, swipe_pick writing every step and writing the f0
+    grid; the checks refuse what the kernels do not take."""
     fs, L = 16000, 9500
     plan = tsw.make_plan(float(fs), 160.0, 300.0, L)
     x = torch.as_tensor(_voice(L, fs, 220.0, 9))[None]
     for dtype, suffix in ((torch.float64, "f64"), (torch.float32, "f32")):
         dp = tsw.device_plan(plan, dtype, x.device)
         xs = x.to(dtype)
+        pitch._check_signal(xs, dp)
+        lns, sym, args, keep, splits = pitch.loudness_call(xs, dp, 132)
+        assert sym == f"swipe_loudness_{suffix}"
+        _decl_kinds(args, build.KERNELS["swipe"][1][sym])
         Si = []
-        for w in dp.windows:
-            spec = tstft.spectrum(xs, w.nfft, w.hop, w.window, w.pad_pre,
-                                  w.pad_post)
-            ln, sym, args = pitch.loudness_call(spec, w)
-            assert sym == f"swipe_loudness_{suffix}"
-            assert ln.shape == (1, w.erb_lo.shape[0], w.nf)
-            pitch._check_spec(spec, w)
-            decl = build.KERNELS["swipe"][1][sym]
-            assert len(args) + 1 == len(decl)      # + the stream
-            Si.append(torch.matmul(w.kernel, pitch.loudness_reference(spec,
-                                                                      w)))
+        for w, ln, scratch, ks in zip(dp.windows, lns, keep[1], splits):
+            assert ln.shape == (1, w.nf, w.erb_lo.shape[0])
+            assert ks == pitch.loudness_splits(w.nf, w.scale_c.shape[0],
+                                               w.nfft, 132)
+            assert scratch.numel() == (ks * 2 if ks > 1 else 1) * (
+                w.nf * w.scale_c.shape[0])
+            Si.append(torch.matmul(pitch.loudness_table_reference(xs, w),
+                                   w.kernel.t()))
+        with pytest.raises(ValueError):
+            pitch._check_signal(xs[:, :-1000], dp)
         pitch._check_pick(Si, dp)
-        out, sym, args, host = pitch.pick_call(Si, dp)
-        assert sym == f"swipe_pick_{suffix}" and out.shape == (1, len(plan.t),
-                                                               3)
-        decl = build.KERNELS["swipe"][1][sym]
-        assert len(args) + 1 == len(decl)
-        for a, t in zip(args, decl):
-            kind = {ctypes.c_void_p: (int, ctypes.c_void_p),
-                    ctypes.c_int: (int,), ctypes.c_double: (float,)}[t]
-            assert isinstance(a, kind), (a, t)
+        for grid, n in ((False, len(plan.t)), (True, dp.t_grid.shape[0])):
+            out, sym, args, host = pitch.pick_call(Si, dp, grid)
+            assert sym == f"swipe_pick_{suffix}" and out.shape == (1, n, 3)
+            _decl_kinds(args, build.KERNELS["swipe"][1][sym])
         with pytest.raises(ValueError):
             pitch._check_pick(Si[:-1], dp)
         other = torch.float32 if dtype == torch.float64 else torch.float64

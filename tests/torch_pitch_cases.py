@@ -25,22 +25,61 @@ def voices(B, L, fs, f0min, f0max, seed):
     return out
 
 
-def compare_picks(got, want, dtype_name):
-    """Two picks (t, f0, strength) [B, T, 3] (numpy): the largest strength
-    error relative to the largest strength, the steps whose f0 is not the
-    same grid point (each a near tie when its strength agrees), and whether
-    the times are equal."""
+def _host(a):
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+def coarse_moves(S_got, S_want, tol):
+    """The steps whose coarse pick (the first argmax over the candidates of
+    the blended strengths [B, T, nc], numpy or torch) differs between two
+    routes, and which of them are proven near ties: in each route the
+    strengths at the two argmaxes agree to tol of that route's largest
+    |S|.  Returns (moved, tie) [B, T] bool and the largest such gap over
+    the moved steps (relative)."""
+    S_got, S_want = _host(S_got), _host(S_want)
+    a = S_got.argmax(-1)[..., None]
+    b = S_want.argmax(-1)[..., None]
+    moved = (a != b)[..., 0]
+
+    def gap(S):
+        d = np.abs(np.take_along_axis(S, a, -1)
+                   - np.take_along_axis(S, b, -1))[..., 0]
+        return d / max(float(np.abs(S).max()), np.finfo(np.float64).tiny)
+
+    g = np.maximum(gap(S_got), gap(S_want))
+    worst = float(g[moved].max()) if moved.any() else 0.0
+    return moved, moved & (g <= tol), worst
+
+
+def compare_picks(got, want, dtype_name, coarse=None):
+    """Two picks (t, f0, strength) [B, T, 3] (numpy): the steps that moved
+    (f0 not the same grid point, or with coarse, coarse_moves' result, the
+    coarse pick on another candidate), the largest strength error relative
+    to the largest strength over every step but the proven near ties of
+    the coarse pick (whose fine maximum comes from the other candidate's
+    parabola), over those ties and over the moved steps, and whether the
+    times are equal."""
     sw = want[..., 2]
     scale = max(float(np.abs(sw).max()), np.finfo(np.float64).tiny)
     ds = np.abs(got[..., 2] - sw) / scale
     f0w = want[..., 1]
     df = np.abs(got[..., 1] - f0w) / np.abs(f0w)
-    moved = df > SAME_F0[dtype_name]
+    same = df <= SAME_F0[dtype_name]
+    none = np.zeros(sw.shape, bool)
+    c_moved, tie, gap = coarse if coarse is not None else (none, none, 0.0)
+    moved = ~same | c_moved
+    held = ~tie
+
+    def top(a, m):
+        return float(a[m].max()) if m.any() else 0.0
+
     return {"steps": int(sw.size),
-            "strength_rel_err": float(ds.max()) if ds.size else 0.0,
-            "f0_rel_err_same_point": float(np.where(moved, 0, df).max())
-            if df.size else 0.0,
+            "strength_rel_err": top(ds, held),
+            "f0_rel_err_same_point": top(df, same),
             "f0_moved": int(moved.sum()),
-            "f0_moved_strength_rel_err": float(ds[moved].max())
-            if moved.any() else 0.0,
+            "coarse_moved": int(c_moved.sum()),
+            "coarse_ties": int(tie.sum()),
+            "coarse_gap": gap,
+            "tie_strength_rel_err": top(ds, tie),
+            "f0_moved_strength_rel_err": top(ds, moved),
             "t_equal": bool(np.array_equal(got[..., 0], want[..., 0]))}

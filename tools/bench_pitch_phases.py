@@ -1,8 +1,9 @@
 """Where the SWIPE' pitch stage's time goes, on one CUDA GPU.
 
-Times each step of the port's pitch stage (``models.swipe.swipep`` and the
-engine's 5 ms f0 grid, ``models.engine.resample_f0_grid``) at the plans of
-the main paths:
+Times each step of the port's pitch stage as the engines call it
+(``models.swipe.f0_grid``: the loudness kernel and the candidate-kernel
+product per window size, then the pick kernel writing the 5 ms f0 grid) at
+the plans of the main paths:
 
   sa19      the golden SA19 resynthesis (tests/golden/sa19_golden.npz),
             female, padded to the 4096-sample page as ``analyze`` pads it
@@ -12,13 +13,23 @@ the main paths:
   wide48    the wide phase's 48 kHz tone (benchmarks.stress_signal(0.15,
             48000, 55.0)), gender (50, 180)
 
-Steps, per call (a batch [B, L] in one call): the basis and device-plan
-lookups (host clock), the DFT GEMM, ``swipe_loudness``, the kernel GEMM,
-``swipe_pick`` and ``resample_f0_grid`` (CUDA events), and the plain
-versions of both kernels timed on the same inputs beside them.
+Steps, per call (a batch [B, L] in one call): the device-plan lookup (host
+clock), ``swipe_loudness`` (from the signal), the kernel GEMM and
+``swipe_pick`` (the grid) (CUDA events), and the plain versions timed on the
+same inputs beside them (the DFT GEMM on the full bases, the loudness's
+torch ops, the pick's and the resample's torch ops).  The parent commit's
+steps come from that commit's own copy of this tool run with its package
+in the same chip call (its route: the DFT GEMM, its loudness kernel, the
+kernel GEMM, its pick kernel over every step, then the resample's torch
+ops).
 
-Beside the steps, ``call_ms``: the package's own ``swipep`` plus the f0 grid
-and one fetch to the host, as the engines call them (host clock, warm,
+The same kernels' device time with no host gap: ``loudness_graph_ms`` and
+``pick_grid_graph_ms``, 5 calls captured into a CUDA graph and replayed,
+ms a call, and ``loudness_kernels_us``, the profiler's device time of each
+of the loudness's two kernels (the DFT and the ERB pass), us a call.
+
+Beside the steps, ``call_ms``: the package's own ``f0_grid`` and one fetch
+to the host, as the engines call them (host clock, warm,
 synchronized), and for corpus64 the batch engine's ``_prepare`` (the pitch,
 the host VAD and prologue and the tier plans of 64 utterances; host clock)
 with its ``_host_prologue`` timed inside it.  Both types are measured
@@ -42,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(ROOT)
@@ -109,34 +121,39 @@ class Steps:
 
 def kernel_call(plan, x, st: Steps, plain: bool):
     """A batch [B, L] through the kernel route, step by step (plain: the
-    plain versions of both kernels on the same inputs)."""
+    plain versions on the same inputs); returns the f0 grid."""
     dtype, dev = x.dtype, x.device
     t0 = time.perf_counter()
     dp = swipe.device_plan(plan, dtype, dev)
-    for w in dp.windows:
-        stft.dft_basis(w.nfft, dtype, dev)
-    st.add_host("plan_and_basis_lookup", time.perf_counter() - t0)
+    st.add_host("plan_lookup", time.perf_counter() - t0)
     st.mark(None)
+    if not plain:
+        lns = pitch.loudness(x, dp)
+        st.mark("swipe_loudness")
     Si = []
-    for w in dp.windows:
-        spec = stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
-                             w.pad_post)
-        st.mark("dft_gemm")
-        ln = (pitch.loudness_reference if plain else pitch.loudness)(spec, w)
-        st.mark("loudness_plain" if plain else "swipe_loudness")
-        Si.append(torch.matmul(w.kernel, ln))
+    for i, w in enumerate(dp.windows):
+        if plain:
+            spec = stft.spectrum(x, w.nfft, w.hop, w.window, w.pad_pre,
+                                 w.pad_post)
+            st.mark("dft_gemm")
+            ln = pitch.loudness_reference(spec, w)
+            st.mark("loudness_plain")
+        else:
+            ln = lns[i]
+        Si.append(torch.matmul(ln, w.kernel.t()))
         st.mark("kernel_gemm")
-    f0s = (pitch.pick_reference if plain else pitch.pick)(Si, dp)
-    st.mark("pick_plain" if plain else "swipe_pick")
-    grid = engine.resample_f0_grid(f0s, dp.t_grid)
-    st.mark("resample_f0_grid")
+    if plain:
+        grid = pitch.grid_reference(Si, dp)
+        st.mark("pick_and_resample_plain")
+    else:
+        grid = pitch.pick(Si, dp, grid=True)
+        st.mark("swipe_pick")
     return grid
 
 
 def engine_call(plan, x):
     """The stage as the engines call it, ending in one fetch to the host."""
-    dp = swipe.device_plan(plan, x.dtype, x.device)
-    return engine.resample_f0_grid(swipe.swipep(plan, x), dp.t_grid).cpu()
+    return swipe.f0_grid(plan, x).cpu()
 
 
 def timed(fn, reps):
@@ -150,6 +167,57 @@ def timed(fn, reps):
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+def graph_ms(fn, reps=5):
+    """ms a call of fn: reps calls captured into a CUDA graph, replayed."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (3 * reps)
+
+
+def kernel_us(fn, reps=10):
+    """The profiler's device time of each kernel of fn, us a call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("<")[0].split("::")[-1]:
+            round(e.self_device_time_total / reps, 1)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "_kernel" in e.key}
+
+
+def device_times(plan, x):
+    """The loudness's and the grid pick's graph-replay ms a call and the
+    loudness's kernels' device us a call."""
+    dp = swipe.device_plan(plan, x.dtype, x.device)
+    Si = [torch.matmul(ln, w.kernel.t())
+          for ln, w in zip(pitch.loudness(x, dp), dp.windows)]
+    return {"loudness_graph_ms": graph_ms(lambda: pitch.loudness(x, dp)),
+            "loudness_kernels_us": kernel_us(lambda: pitch.loudness(x, dp)),
+            "pick_grid_graph_ms": graph_ms(
+                lambda: pitch.pick(Si, dp, grid=True))}
 
 
 def steps_of(fn, reps):
@@ -224,6 +292,7 @@ def run_cell(name, dtype, reps, walls=False):
         lambda st: kernel_call(plan, x, st, False), reps)
     out["plain_steps_ms"] = steps_of(
         lambda st: kernel_call(plan, x, st, True), reps)
+    out.update(device_times(plan, x))
     out["call_ms"] = timed(lambda: engine_call(plan, x), reps)
     if name == "corpus64":
         out.update(prepare_ms(x_np, fs, gender, dtype, max(2, reps // 2)))

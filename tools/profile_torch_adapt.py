@@ -22,7 +22,12 @@ the pitch span's work (``pitch_span``: the launches the host issued inside
 it, by kind (kernels, copies, memsets), its host-to-device copies, and its
 device busy time, the sum of the device events of those
 launches, kept apart from the span's timeline range), the engine's
-``pitch_dispatch`` and ``pitch`` timings, and the top kernels.  With
+``pitch_dispatch`` and ``pitch`` timings of the profiled call (and the
+first call's ``pitch_dispatch``, which builds the plan's device tables, and
+each unprofiled warm call's, ``warm_pitch_dispatch_s``), the DFT tables
+the pitch stage keeps on the card after the calls (``dft_cache_bytes``: the
+full bases, and the compact tables where the package has them), and the
+top kernels.  With
 --peaks, one more unprofiled call per configuration measures the peak
 device memory of each stage: the peak is reset just before every call of
 the fit (iqhm_gram_tables / eaqhm_gram_tables), the solve (solve_gram)
@@ -175,19 +180,23 @@ def stage_peaks(sig, fs, cfg):
 
 
 def profile_config(sig, fs, spec, args):
+    from eaqhm_torch.ops import stft
     cfg = config_of(spec, args.signal)
-    first = None
+    first = first_pitch = None
     for _ in range(args.warm):
         t0 = time.time()
-        eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
+        r = eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
         torch.cuda.synchronize()
-        first = time.time() - t0 if first is None else first
-    warm = []
+        if first is None:
+            first = time.time() - t0
+            first_pitch = r.timings.get("pitch_dispatch")
+    warm, warm_pitch = [], []
     for _ in range(args.timed):
         t0 = time.time()
         res = eaqhm_torch.analyze(sig, fs, cfg, device="cuda")
         torch.cuda.synchronize()
         warm.append(time.time() - t0)
+        warm_pitch.append(res.timings.get("pitch_dispatch"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -227,15 +236,24 @@ def profile_config(sig, fs, spec, args):
         "pitch_span": span_work(prof, "eaqhm/pitch"),
         "pitch_timings_s": {k: res.timings.get(k) for k in
                             ("pitch_dispatch", "vad", "pitch")},
+        "first_pitch_dispatch_s": first_pitch,
+        "warm_pitch_dispatch_s": warm_pitch,
+        # DFT tables the pitch stage keeps on the card after the calls
+        "dft_cache_bytes": {
+            "bases": stft.basis_cache_bytes(),
+            "columns": (stft.columns_cache_bytes()
+                        if hasattr(stft, "columns_cache_bytes") else None)},
         "top_kernels": kernels, "tiers": res.tiers,
     }
     if args.peaks:
         out["peaks"] = stage_peaks(sig, fs, cfg)
     out["card"] = _card()
     print(json.dumps({k: out[k] for k in (
-        "config", "signal", "card", "warm_wall_s", "device_idle_share",
-        "span_device_s", "tracks_spans", "tracks_device_s_per_span",
-        "tracks_launches_per_span", "pitch_span", "pitch_timings_s")
+        "config", "signal", "card", "first_call_s", "warm_wall_s",
+        "device_idle_share", "span_device_s", "tracks_spans",
+        "tracks_device_s_per_span", "tracks_launches_per_span", "pitch_span",
+        "pitch_timings_s", "first_pitch_dispatch_s", "warm_pitch_dispatch_s",
+        "dft_cache_bytes")
         + (("peaks",) if args.peaks else ())}),
         flush=True)
     return out
